@@ -2,33 +2,69 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path, the bench headline: a 256 goals x 16 forces
-x 1 box = 4096-scenario grid at N = 20, solved by
-engine/batch.py::solve_scenario_grid with the bench tier schedule, every
-monotone IPM iteration launched as the hand-written CUDA kernel
-ops/csrc/ipm_iteration.cu.  Phases, one line each (any failure exits
-non-zero and nothing after it is printed):
+Drives the port's two main paths at full width and holds every hand-written
+CUDA kernel against its plain PyTorch version on the card:
+
+  slice 1, the bench headline: a 256 goals x 16 forces x 1 box = 4096-
+  scenario grid at N = 20 solved by engine/batch.py::solve_scenario_grid
+  with the bench tier schedule, every monotone IPM iteration launched as
+  ops/csrc/ipm_iteration.cu (K1);
+  slice 2, the batched full NMPC step: engine/pipeline_batch.py::
+  nmpc_step_batched at DEFAULT_CONFIG on 4096 robots (N = 20, K = 64 path
+  samples, M = 256 obstacles, each robot its own cloud, force, time offset
+  and profile), with the tube kernel ops/csrc/tube_stage.cu (K2), the
+  corridor kernel ops/csrc/corridor.cu (K3) and K1.
+
+Phases, one line each (any failure exits non-zero and nothing after it is
+printed):
 
   0. device: needs torch.cuda; prints the card's name and power limit
-  1. build: compiles the kernel with nvcc, prints build seconds and the
-     ptxas register / spill report
-  2. kernel vs its plain PyTorch version on the card at B = 4096, one
+  1. build: compiles the three kernel sources with nvcc, all at once;
+     prints build seconds and the ptxas register / spill report of each
+  2. K1 vs its plain PyTorch version on the card at B = 4096, one
      iteration from the initial state and one after 8 plain iterations:
      f64 |d| <= 1e-9 (1 + |ref|) with identical it/done; f32 from the
      initial state |d| <= 1e-3 (1 + |ref|) on the lanes whose done flag
      agrees; f32 in mid-solve the kernel's error against the f64 step from
      the same state within 1.25x the plain f32 step's (+1e-3); f32 done
      flags agreeing on >= 99.9% of lanes
-  3. main path at f32: solved fraction >= 0.999; kernel launches equal to
-     the host-loop iterations stepped (> 0); the first 64 lanes re-solved
-     by the plain path at f64 on the CPU within 1e-3 in u; the grid solved
-     through the plain version on the card agreeing on exit codes for
-     >= 99.5% of lanes
-  4. times: kernel and plain ms per iteration, grid-solve ms per call and
+  3. slice 1 main path at f32: solved fraction >= 0.999; K1 launches equal
+     to the host-loop iterations stepped (> 0); the first 64 lanes
+     re-solved by the plain path at f64 on the CPU within 1e-3 in u; the
+     grid solved through the plain version on the card agreeing on exit
+     codes for >= 99.5% of lanes
+  4. K1 times: kernel and plain ms per iteration, grid-solve ms per call and
      solves/s over 5 fresh seed sets, mean iterations
+  5. K2 vs its plain version at L = B N = 81,920 stage lanes, on random
+     tube-regime lanes and on the main path's own stage lanes: f64
+     |d| <= 1e-10 (1 + |ref|); f32 max |d| Phi <= 2e-5, Mp <= 2e-6,
+     Qd <= 1e-6, Q1 <= 1e-6
+  6. K3 vs its plain version: f64, A and b within 1e-9 on every row, on
+     generic random inputs at B = 256, M = 256 and at B = 64, M = 2048, and
+     on the main path's own segments and clouds (B = 4096, M = 256); f32
+     at the main path's inputs, the share of (robot, stage) whose rows
+     match within 1e-4 (printed, not barred: argmin ties flip planes at f32)
+  7. slice 2 main path at f32, on the easy workload and on one where every
+     4th robot has drifted from its plan: K2 and K3 launched once each, K1
+     once per host-loop step; every output finite on the accepted robots;
+     the f64 certificate on the CPU (no obstacle inside any tightened
+     polytope, accepted trajectories within 1e-4 of their corridors, the
+     card's NLP of robots 0-63 re-solved by the plain solver at f64 within
+     1e-3 in u); the step through the plain versions on the card, its
+     exit-code agreement printed and its solved fraction within 0.005
+  8. slice 2 times: K2 and K3 ms per call against their plain versions;
+     nmpc_step_batched ms per call and steps/s over 5 pre-staged fresh
+     input sets of each workload; engine/pipeline.py::nmpc_step at B = 1,
+     p50 / p99 over 30 calls, in the __graft_entry__._small_cfg
+     configuration (reduced caps) and in DEFAULT_CONFIG
 
-Then a {"kernels": [...]} JSON line, and last {"ok": true, "device": ...}.
-Imports nothing of JAX.
+The {"kernels"} line's max_abs_err is, for every kernel, the f32 kernel
+against its plain version on the main path's inputs at the main path's
+shape (K1: the grid's initial IPM state; K2: the step's stage lanes; K3:
+the step's segments and clouds).
+
+Then a {"kernels": [...]} JSON line, the card's name and power limit, and
+last {"ok": true, "device": ...}.  Imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -42,13 +78,28 @@ import numpy as np
 import torch
 
 import bench
-from forces_resilient_planner_tpu_torch.engine import batch
-from forces_resilient_planner_tpu_torch.ops import _build, ipm_kernel
+from forces_resilient_planner_tpu_torch.config import DEFAULT_CONFIG
+from forces_resilient_planner_tpu_torch.engine import (
+    batch,
+    pipeline,
+    pipeline_batch,
+    reference,
+)
+from forces_resilient_planner_tpu_torch.ops import (
+    _build,
+    corridor_kernel,
+    ipm_kernel,
+    tube_kernel,
+)
 from forces_resilient_planner_tpu_torch.solver import ipm_lanes, nlp
+from forces_resilient_planner_tpu_torch.solver.problems import hover_warm_start
 
-KERNEL_SOURCE = "forces_resilient_planner_tpu_torch/ops/csrc/ipm_iteration.cu"
+CSRC = "forces_resilient_planner_tpu_torch/ops/csrc/"
+KERNEL_SOURCE = CSRC + "ipm_iteration.cu"
 KERNEL_REPLACES = "forces_resilient_planner_tpu/ops/ipm_pallas.py:218"
 MAX_ITERS = 60.0
+KEYS = pipeline_batch.PIPELINE_ARG_KEYS
+STEP_B, STEP_K, STEP_M = 4096, 64, 256
 
 
 def fail(msg: str):
@@ -173,6 +224,388 @@ def cuda_ms(fn, reps):
     return t0.elapsed_time(t1) / reps
 
 
+# ---------------------------------------------------------------------------
+# slice 2: the batched full NMPC step
+# ---------------------------------------------------------------------------
+
+def step_inputs(seed, B, dtype, device, K=STEP_K, M=STEP_M, cfg=DEFAULT_CONFIG,
+                drift=False):
+    """The bench's full-step workload (bench.py:277-296,
+    __graft_entry__._example_inputs) with per-robot variety drawn from
+    `seed`: each robot its own obstacle cloud from the same distribution,
+    f_ext in [-1, 1]^3, t_offset in [0, 0.3], every 8th robot on the final
+    profile, its deque perturbed by 1e-4.  drift=True: every 4th robot has
+    drifted from its last plan, its whole deque shifted by N(0, 0.3) m in
+    position and N(0, 1) m/s in velocity (more iterations; some robots end
+    at max_iters, the NaN guard or no progress)."""
+    rng = np.random.default_rng(seed)
+    N = cfg.model.N
+    x0 = np.zeros(9)
+    x0[2] = 1.2
+    Z = hover_warm_start(torch.as_tensor(x0), cfg.model).numpy()
+    out = np.concatenate([Z, Z[-1:]], axis=0)
+    t = np.arange(K) * cfg.model.dt
+    path = np.stack([1.2 * t, 0.3 * t, np.full(K, 1.2)], -1)
+    obs = rng.uniform([-1, -3, 0], [5, 3, 2.5], (B, M, 3))
+    obs = np.where(np.abs(obs[..., 1:2]) < 0.8, obs + np.array([0, 2.0, 0]),
+                   obs)
+    out = out[None] + rng.normal(0, 1e-4, (B, N + 1, 17))
+    if drift:
+        moved = np.arange(B) % 4 == 1
+        d = np.random.default_rng(seed + 77)
+        out[moved, :, 8:11] += d.normal(0, 0.3, (moved.sum(), 1, 3))
+        out[moved, :, 11:14] += d.normal(0, 1.0, (moved.sum(), 1, 3))
+    args = dict(
+        mpc_output=out,
+        kino_path=np.broadcast_to(path, (B, K, 3)),
+        kino_size=np.full(B, K),
+        t_offset=rng.uniform(0.0, 0.3, B),
+        state_mpc=np.broadcast_to(x0, (B, 9)),
+        f_ext=rng.uniform(-1.0, 1.0, (B, 3)),
+        end_pt=np.broadcast_to(path[-1], (B, 3)),
+        obstacles=obs,
+        obstacle_mask=np.ones((B, M), bool),
+        use_final=np.arange(B) % 8 == 7,
+    )
+    return pipeline_batch.pipeline_inputs_from_numpy(args, dtype=dtype,
+                                                     device=device)
+
+
+def step(inputs, cfg=DEFAULT_CONFIG):
+    return pipeline_batch.nmpc_step_batched(*[inputs[k] for k in KEYS],
+                                            cfg=cfg)
+
+
+def plain_routes():
+    """Every kernel wrapper replaced by its plain PyTorch version."""
+    return (
+        mock.patch.object(tube_kernel, "tube_stage_lanes",
+                          tube_kernel.tube_stage_reference),
+        mock.patch.object(corridor_kernel, "decompose_stages_lanes",
+                          corridor_kernel.decompose_stages_reference),
+        mock.patch.object(ipm_kernel, "ipm_iteration_fused",
+                          ipm_kernel.ipm_iteration_reference),
+    )
+
+
+def tube_check(x, u, device):
+    """K2 vs plain on the stage lanes x (L, 9), u (L, 4) (numpy) at f64 and
+    f32.  Returns the f32 max |d| over outputs and a report."""
+    cfg = DEFAULT_CONFIG
+    f32_bounds = {"Qd": 1e-6, "Mp": 2e-6, "Phi": 2e-5, "Q1": 1e-6}
+    worst32, msg = 0.0, []
+    for dtype in (torch.float64, torch.float32):
+        xt = torch.as_tensor(x, dtype=dtype, device=device)
+        ut = torch.as_tensor(u, dtype=dtype, device=device)
+        ref = tube_kernel.tube_stage_reference(xt, ut, cfg.model, cfg.tube)
+        got = tube_kernel.tube_stage_lanes(xt, ut, cfg.model, cfg.tube)
+        torch.cuda.synchronize()
+        for name, g, r in zip(f32_bounds, got, ref):
+            if not torch.isfinite(g).all():
+                fail(f"K2 {name} {dtype}: non-finite kernel output")
+            d = (g - r).abs()
+            if dtype == torch.float64:
+                rel = (d / (1 + r.abs())).max().item()
+                if rel > 1e-10:
+                    fail(f"K2 {name} f64: max rel {rel:.3e} > 1e-10")
+                msg.append(f"{name} f64 rel {rel:.2e}")
+            else:
+                err = d.max().item()
+                if err > f32_bounds[name]:
+                    fail(f"K2 {name} f32: max abs {err:.3e} > "
+                         f"{f32_bounds[name]}")
+                worst32 = max(worst32, err)
+                msg.append(f"{name} f32 abs {err:.2e}")
+    return worst32, "; ".join(msg)
+
+
+def random_segments(B, N, M, seed):
+    """Generic random stage segments and clouds (the inputs of
+    tools/kernel_parity_debug.py:86-93)."""
+    rng = np.random.default_rng(seed)
+    p1 = rng.uniform([-1, -1, 0.8], [1, 1, 1.6], (B, N, 3))
+    yaw = rng.uniform(-np.pi, np.pi, (B, N))
+    p2 = p1 + 0.1 * np.stack([np.cos(yaw), np.sin(yaw), np.zeros_like(yaw)],
+                             -1)
+    obs = rng.uniform([-3, -3, -0.5], [3, 3, 3], (B, M, 3))
+    mask = rng.uniform(size=(B, M)) < 0.9
+    return p1, p2, obs, mask
+
+
+def corridor_rows(args, device):
+    """K3 and its plain version on the same inputs: per-(robot, stage) max
+    |dA|, |db| over the rows."""
+    ccfg, nh = DEFAULT_CONFIG.corridor, DEFAULT_CONFIG.model.nh
+    Ag, bg = corridor_kernel.decompose_stages_lanes(*args, ccfg, nh)
+    Ar, br = corridor_kernel.decompose_stages_reference(*args, ccfg, nh)
+    torch.cuda.synchronize()
+    if not (torch.isfinite(Ag).all() and torch.isfinite(bg).all()):
+        fail("K3: non-finite kernel output")
+    return (Ag - Ar).abs().amax(dim=(-1, -2)), (bg - br).abs().amax(dim=-1)
+
+
+def certificate(res, inputs, cfg, lanes=64, chunk=128):
+    """The f64 audit of tools/tpu_parity_check.py:438-530 in torch on the
+    CPU: obstacle penetration into the tightened polytopes, the accepted
+    trajectories' corridor violation, and the card's NLP of the first
+    `lanes` robots re-solved by the port's plain solver at f64."""
+    N = cfg.model.N
+    A = res.corridor_A.double().cpu()
+    bt = res.corridor_b_tight.double().cpu()
+    obs = inputs["obstacles"].double().cpu()
+    mask = inputs["obstacle_mask"].cpu()
+    ec = res.exit_code.cpu()
+    out = res.mpc_output.double().cpu()
+    act = A.norm(dim=-1) > 1e-9
+    max_pen, n_pen = 0.0, 0
+    for i in range(0, A.shape[0], chunk):
+        sl = slice(i, i + chunk)
+        s = torch.einsum("bnkj,bmj->bnmk", A[sl], obs[sl]) - bt[sl, :, None]
+        s = torch.where(act[sl, :, None], s, -torch.inf)
+        depth = torch.where(mask[sl, None], -s.amax(dim=-1), -torch.inf)
+        pen = depth.clamp(min=0.0)
+        max_pen = max(max_pen, pen.max().item())
+        n_pen += int((pen.amax(dim=-1) > 0).sum())
+    solved = ec == 1
+    pos = out[:, :N, 8:11]
+    viol = torch.einsum("bnkj,bnj->bnk", A, pos) - bt
+    viol = torch.where(act, viol, -torch.inf)[solved]
+    max_viol = viol.max().item() if solved.any() else float("-inf")
+
+    sl = slice(0, lanes)
+    inp = {k: v[sl].cpu() for k, v in inputs.items()}
+    prev = inp["mpc_output"].double()
+    ref64 = type(res.ref)(*(t[sl].double().cpu() for t in res.ref))
+    params = pipeline_batch.pack_nlp_params(
+        ref64, A[sl], bt[sl], inp["f_ext"].double(), prev, inp["use_final"],
+        cfg)
+    r64 = ipm_lanes.solve_batch_lanes_tiered(
+        prev[:, 1:N + 1], params, cfg.model, cfg.solver)
+    both = (r64.exit_code == 1) & solved[sl]
+    du = (r64.Z[:, :, 0:4] - out[sl, :N, 0:4]).abs().amax(dim=(1, 2))
+    du_max = du[both].max().item() if both.any() else float("inf")
+    return max_pen, n_pen, max_viol, int(both.sum()), du_max
+
+
+def stage_segments(inputs, cfg):
+    """The corridor kernel's inputs on the main path: every stage's
+    reference point, its second seed point, and the robot's cloud."""
+    ref = reference.sample_references(
+        inputs["kino_path"], inputs["kino_size"], inputs["t_offset"],
+        inputs["mpc_output"][:, 1, 16], inputs["mpc_output"][:, 1, 8:11],
+        N=cfg.model.N, Ts=cfg.model.dt)
+    return (ref.ref_pos.contiguous(),
+            pipeline.corridor_seed2(ref, cfg).contiguous(),
+            inputs["obstacles"], inputs["obstacle_mask"])
+
+
+def corridor_f64(args, device, label):
+    """K3 vs plain at f64: A and b within 1e-9 on every row."""
+    dA, db = corridor_rows(args, device)
+    worst = max(dA.max().item(), db.max().item())
+    if worst > 1e-9:
+        fail(f"K3 f64 {label}: max row |d| {worst:.3e} > 1e-9 on "
+             f"{int(((dA > 1e-9) | (db > 1e-9)).sum())} (robot, stage)")
+    say(f"phase 6 K3 vs plain f64, {label}: max |dA| {dA.max().item():.2e}, "
+        f"max |db| {db.max().item():.2e} (bar 1e-9 on every row)")
+
+
+def launch_counts():
+    return (ipm_kernel.LAUNCHES, tube_kernel.LAUNCHES,
+            corridor_kernel.LAUNCHES)
+
+
+def check_step(inputs, dev, label):
+    """Phase 7 on one input set: the step through the kernels with its
+    launch counts, finiteness, the f64 audit, and the same step through the
+    plain versions on the card.  Returns the K2 and K3 launch counts."""
+    cfg = DEFAULT_CONFIG
+    B = inputs["mpc_output"].shape[0]
+    torch.cuda.synchronize()
+    tube_kernel.LAUNCHES = corridor_kernel.LAUNCHES = 0
+    ipm_kernel.LAUNCHES = 0
+    ipm_lanes.STEPS = 0
+    res = step(inputs)
+    torch.cuda.synchronize()
+    l1, l2, l3 = launch_counts()
+    steps = ipm_lanes.STEPS
+    if "jax" in sys.modules:
+        fail("jax was imported")
+    if not (l2 == 1 and l3 == 1 and l1 == steps > 0):
+        fail(f"launches: K2 {l2}, K3 {l3} (want 1 each), K1 {l1} vs "
+             f"host-loop steps {steps}")
+    ec = res.exit_code.cpu()
+    acc = ec == 1
+    solved = acc.double().mean().item()
+    if not torch.isfinite(res.mpc_output).all():
+        fail("non-finite mpc_output")
+    for name in ("corridor_A", "corridor_b", "corridor_b_tight", "tube_E",
+                 "kkt_error"):
+        if not torch.isfinite(getattr(res, name)[acc.to(dev)]).all():
+            fail(f"non-finite {name} on accepted robots")
+    if not all(torch.isfinite(t).all() for t in res.ref):
+        fail("non-finite references")
+    pen, n_pen, viol, n_both, du = certificate(res, inputs, cfg)
+    solved64 = int(acc[:64].sum())
+    codes = {int(c): int((ec == c).sum()) for c in ec.unique()}
+    say(f"phase 7 main path nmpc_step_batched B={B} f32{label}: solved "
+        f"{solved:.6f}, exit codes {codes}, launches K2 {l2} K3 {l3} K1 {l1} "
+        f"= host-loop steps {steps}, mean iters "
+        f"{res.iters.double().mean().item():.3f}; f64 audit: max "
+        f"obstacle penetration {pen} m ({n_pen} stages), max accepted "
+        f"corridor violation {viol:.3e}, re-solve of robots 0-63 max |du| "
+        f"{du:.3e} over {n_both} robots (card solved {solved64})")
+    if pen != 0.0:
+        fail(f"obstacle penetration {pen} m into a tightened corridor")
+    if viol > 1e-4:
+        fail(f"accepted trajectories violate their corridors by {viol:.3e}")
+    if n_both < 0.95 * solved64 or du > 1e-3:
+        fail(f"f64 re-solve: {n_both} robots solved by both of {solved64}, "
+             f"max |du| {du:.3e} (bar 1e-3)")
+
+    before = launch_counts()
+    patches = plain_routes()
+    with patches[0], patches[1], patches[2]:
+        plain = step(inputs)
+    torch.cuda.synchronize()
+    if launch_counts() != before:
+        fail("the plain step launched a kernel")
+    ec_p = plain.exit_code.cpu()
+    solved_p = (ec_p == 1).double().mean().item()
+    agree = (ec_p == ec).double().mean().item()
+    say(f"phase 7 plain versions on the card{label}: solved {solved_p:.6f} "
+        f"(kernel path {solved:.6f}), exit codes agree on {agree:.6f} of "
+        f"robots")
+    if abs(solved - solved_p) > 0.005:
+        fail(f"solved fraction {solved:.6f} vs plain {solved_p:.6f}")
+    return l2, l3
+
+
+def one_robot_latency(cfg, label, M, dev, card, calls=30):
+    """engine/pipeline.py::nmpc_step (B = 1) p50 / p99 over `calls` calls,
+    each with a fresh 1e-3 perturbation of the state and force."""
+    f32 = torch.float32
+    one = step_inputs(7, 1, f32, dev, M=M, cfg=cfg)
+    one = {k: v[0] for k, v in one.items()}
+    rng = np.random.default_rng(0)
+
+    def single(a):
+        return pipeline.nmpc_step(*[a[k] for k in KEYS], cfg=cfg)
+
+    single(one)
+    torch.cuda.synchronize()
+    lat, ec = [], []
+    for _ in range(calls):
+        a = dict(one)
+        a["state_mpc"] = one["state_mpc"] + torch.as_tensor(
+            rng.normal(0, 1e-3, 9), dtype=f32, device=dev)
+        a["f_ext"] = one["f_ext"] + torch.as_tensor(
+            rng.normal(0, 1e-3, 3), dtype=f32, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = single(a)
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - t0)
+        ec.append(int(r.exit_code))
+    lat = 1e3 * np.asarray(lat)
+    say(f"phase 8 nmpc_step B=1 {label} M={M} f32 [{card}]: p50 "
+        f"{np.percentile(lat, 50):.2f} ms, p99 {np.percentile(lat, 99):.2f} "
+        f"ms over {calls} calls, solved {np.mean(np.asarray(ec) == 1):.3f}")
+
+
+def run_slice2(dev, card):
+    """Phases 5-8; returns the {"kernels"} entries of K2 and K3."""
+    cfg = DEFAULT_CONFIG
+    N, B = cfg.model.N, STEP_B
+    f32 = torch.float32
+
+    inputs = step_inputs(1, B, f32, dev)
+    in64 = step_inputs(1, B, torch.float64, dev)
+
+    # ---- phase 5: K2 vs plain at L = B N ----------------------------------
+    rng = np.random.default_rng(9)
+    x = rng.normal(0, 0.4, (B * N, 9))
+    u = np.array([0, 0, 0, 7.3]) + rng.normal(0, 0.5, (B * N, 4))
+    _, msg = tube_check(x, u, dev)
+    say(f"phase 5 K2 vs plain L={B * N}, random tube-regime lanes: {msg}")
+    Z = in64["mpc_output"][:, :N].reshape(B * N, 17).cpu().numpy()
+    err2, msg = tube_check(Z[:, 8:17], Z[:, 0:4], dev)
+    say(f"phase 5 K2 vs plain L={B * N}, the main path's stage lanes: {msg}")
+
+    # ---- phase 6: K3 vs plain ---------------------------------------------
+    for Bc, M in ((256, 256), (64, 2048)):
+        p1, p2, obs, mask = random_segments(Bc, N, M, 31)
+        args = [torch.as_tensor(a, dtype=torch.float64, device=dev)
+                for a in (p1, p2, obs)] + [torch.as_tensor(mask, device=dev)]
+        corridor_f64(args, dev, f"generic B={Bc} N={N} M={M}")
+    corridor_f64(stage_segments(in64, cfg), dev,
+                 f"the main path's B={B} N={N} M={STEP_M}")
+    args3 = stage_segments(inputs, cfg)
+    dA, db = corridor_rows(args3, dev)
+    err3 = max(dA.max().item(), db.max().item())
+    share = ((dA <= 1e-4) & (db <= 1e-4)).double().mean().item()
+    say(f"phase 6 K3 vs plain f32 B={B} N={N} M={STEP_M}: rows within 1e-4 "
+        f"on {share:.6f} of (robot, stage); max |dA| {dA.max().item():.2e}, "
+        f"max |db| {db.max().item():.2e} (f32 argmin ties; not barred)")
+    del in64
+
+    # ---- phase 7: the slice-2 main path -----------------------------------
+    l2, l3 = check_step(inputs, dev, "")
+    check_step(step_inputs(2, B, f32, dev, drift=True), dev,
+               ", every 4th robot drifted")
+
+    # ---- phase 8: times ---------------------------------------------------
+    Z = inputs["mpc_output"][:, :N]
+    x = Z[..., 8:17].reshape(B * N, 9).contiguous()
+    u = Z[..., 0:4].reshape(B * N, 4).contiguous()
+    targs = (x, u, cfg.model, cfg.tube)
+    ms2 = cuda_ms(lambda: tube_kernel.tube_stage_lanes(*targs), 10)
+    ms2p = cuda_ms(lambda: tube_kernel.tube_stage_reference(*targs), 3)
+    cargs = (*args3, cfg.corridor, cfg.model.nh)
+    ms3 = cuda_ms(lambda: corridor_kernel.decompose_stages_lanes(*cargs), 5)
+    ms3p = cuda_ms(lambda: corridor_kernel.decompose_stages_reference(*cargs),
+                   2)
+    say(f"phase 8 kernels f32 [{card}]: K2 {ms2:.3f} ms vs plain {ms2p:.3f} "
+        f"ms at L={B * N}; K3 {ms3:.3f} ms vs plain {ms3p:.3f} ms at B={B} "
+        f"N={N} M={STEP_M}")
+
+    for drift, label in ((False, ""), (True, ", every 4th robot drifted")):
+        sets = [step_inputs(seed, B, f32, dev, drift=drift)
+                for seed in range(1001, 1006)]
+        torch.cuda.synchronize()
+        lat, solved_t, iters = [], [], []
+        for a in sets:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = step(a)
+            torch.cuda.synchronize()
+            lat.append(time.perf_counter() - t0)
+            solved_t.append((r.exit_code == 1).double().mean().item())
+            iters.append(r.iters.double().mean().item())
+        lat_ms = 1e3 * np.asarray(lat)
+        say(f"phase 8 nmpc_step_batched B={B} f32{label} [{card}]: "
+            f"{lat_ms.mean():.2f} ms/call (min {lat_ms.min():.2f}, max "
+            f"{lat_ms.max():.2f}), {B / lat_ms.mean() * 1e3:.1f} steps/s, "
+            f"solved {np.mean(solved_t):.6f}, mean iters {np.mean(iters):.3f}")
+        del sets
+
+    import __graft_entry__
+
+    small = __graft_entry__._small_cfg()
+    one_robot_latency(small, "small_cfg (reduced caps)",
+                      small.corridor.max_obstacles, dev, card)
+    one_robot_latency(cfg, "DEFAULT_CONFIG", STEP_M, dev, card)
+
+    return [
+        {"name": "tube_stage", "route": "cuda", "source": CSRC + "tube_stage.cu",
+         "replaces": "forces_resilient_planner_tpu/ops/tube_pallas.py:65",
+         "launches": l2, "max_abs_err": err2, "ms": ms2, "plain_ms": ms2p},
+        {"name": "corridor", "route": "cuda", "source": CSRC + "corridor.cu",
+         "replaces": "forces_resilient_planner_tpu/ops/corridor_pallas.py:98",
+         "launches": l3, "max_abs_err": err3, "ms": ms3, "plain_ms": ms3p},
+    ]
+
+
 def main() -> int:
     # ---- phase 0: device ------------------------------------------------
     if not torch.cuda.is_available():
@@ -191,11 +624,13 @@ def main() -> int:
         f"torch {torch.__version__} cuda {torch.version.cuda}")
 
     # ---- phase 1: build ---------------------------------------------------
-    built = _build.load()
-    ptxas = [ln.strip() for ln in built.ptxas_log.splitlines()
-             if "registers" in ln or "spill" in ln]
-    say(f"phase 1 build: {built.seconds:.1f} s -> {built.path.name}; "
-        + " | ".join(ptxas))
+    t0 = time.perf_counter()
+    for source, built in _build.build().items():
+        ptxas = [ln.strip() for ln in built.ptxas_log.splitlines()
+                 if "registers" in ln or "spill" in ln]
+        say(f"phase 1 build {source}: {built.seconds:.1f} s -> "
+            f"{built.path.name}; " + " | ".join(ptxas))
+    say(f"phase 1 build: all sources in {time.perf_counter() - t0:.1f} s")
 
     cfg = bench.bench_config()
 
@@ -293,6 +728,8 @@ def main() -> int:
         f"{B / lat_ms.mean() * 1e3:.1f} solves/s, mean iters "
         f"{np.mean(iters):.3f}")
 
+    slice2 = run_slice2(dev, card)
+
     # max_abs_err: f32 kernel vs plain from the initial state, the check
     # held elementwise (the mid-solve one is printed in phase 2)
     print(json.dumps({"kernels": [{
@@ -300,7 +737,7 @@ def main() -> int:
         "replaces": KERNEL_REPLACES, "launches": launches,
         "max_abs_err": errs[torch.float32], "ms": ms_kernel,
         "plain_ms": ms_plain,
-    }]}))
+    }, *slice2]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

@@ -1,0 +1,83 @@
+"""Reference sampling along the kino path + yaw computation (torch).
+
+Port of forces_resilient_planner_tpu/engine/reference.py (NMPCSolver::
+getCurTraj / calculate_yaw, nmpc_solver.cpp:109-142, 834-862), batched over
+a leading robot axis B.  The yaw low-pass filter is sequential by
+construction: a loop over the N stages on (B,) tensors.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from forces_resilient_planner_tpu_torch.utils.lanes import norm3
+
+_PI = 3.1415926  # the reference's PI constant, exactly (nmpc_solver.cpp:3)
+
+
+class ReferenceResult(NamedTuple):
+    ref_pos: torch.Tensor      # (B, N, 3)
+    ref_yaw: torch.Tensor      # (B, N)
+    stage0_jump: torch.Tensor  # (B,) ||ref_0 - predicted stage-1 pos||
+
+
+def sample_references(
+    kino_path: torch.Tensor,   # (B, K, 3) padded
+    kino_size: torch.Tensor,   # (B,) int, actual sample count
+    t_offset: torch.Tensor,    # (B,) seconds since kino path start
+    last_yaw: torch.Tensor,    # (B,) mpc_output[:, 1, 16] (nmpc_solver.cpp:486)
+    pred_pos1: torch.Tensor,   # (B, 3) mpc_output[:, 1] position
+    N: int,
+    Ts: float,
+    lookahead: int = 5,
+) -> ReferenceResult:
+    dtype, device = kino_path.dtype, kino_path.device
+    B, K = kino_path.shape[0], kino_path.shape[1]
+    size = kino_size.to(torch.int64)[:, None]                    # (B, 1)
+    i = torch.arange(N, dtype=dtype, device=device)
+    index_time = i[None] * Ts + t_offset[:, None]                # (B, N)
+    kino_idx = torch.floor(index_time / Ts).to(torch.int64)
+    frac = torch.remainder(index_time, Ts) / Ts
+    last = torch.clamp(size - 1, min=0)                          # (B, 1)
+
+    rows = torch.arange(B, device=device)[:, None]
+
+    def gather(idx):
+        return kino_path[rows, torch.clamp(idx, 0, K - 1)]       # (B, n, 3)
+
+    p0 = gather(kino_idx)
+    p1 = gather(kino_idx + 1)
+    interp = p0 + frac[..., None] * (p1 - p0)
+    ref_pos = torch.where(
+        (kino_idx + 1 < size)[..., None], interp, gather(last)
+    )
+    fwd_idx = torch.where(kino_idx + lookahead < size, kino_idx + lookahead,
+                          last)
+    fwd_pos = gather(fwd_idx)
+
+    # sequential yaw LPF (calculate_yaw, nmpc_solver.cpp:834-862)
+    y = last_yaw
+    yaws = []
+    for n in range(N):
+        d = fwd_pos[:, n] - ref_pos[:, n]
+        yaw_t = torch.where(norm3(d) > 0.1, torch.atan2(d[:, 1], d[:, 0]), y)
+        big = torch.abs(yaw_t - y) > _PI
+        yaw_w = torch.where(
+            big, torch.where(yaw_t > 0, yaw_t - 2 * _PI, yaw_t + 2 * _PI),
+            yaw_t,
+        )
+        y = 0.2 * y + 0.8 * yaw_w
+        yaws.append(y)
+    ref_yaw = torch.stack(yaws, dim=1)
+    jump = norm3(ref_pos[:, 0] - pred_pos1)
+    return ReferenceResult(ref_pos=ref_pos, ref_yaw=ref_yaw, stage0_jump=jump)
+
+
+def wrap_yaw_outputs(Z: torch.Tensor) -> torch.Tensor:
+    """Yaw unwrap of solver outputs (..., 17) to (-pi, pi]
+    (updateFORCESResults, nmpc_solver.cpp:531-541)."""
+    yaw = Z[..., 16]
+    yaw = torch.where(yaw < -_PI, yaw + 2 * _PI, yaw)
+    yaw = torch.where(yaw > _PI, yaw - 2 * _PI, yaw)
+    return torch.cat([Z[..., :16], yaw[..., None]], dim=-1)

@@ -1,10 +1,12 @@
-"""Build and load the hand-written CUDA kernel of ops/csrc/.
+"""Build and load the hand-written CUDA kernels of ops/csrc/.
 
-nvcc compiles ops/csrc/ipm_iteration.cu for sm_90a into a shared library
-with a plain C interface, loaded with ctypes.  The library is built at
-first use into ops/csrc/build/ (git-ignored) and rebuilt whenever the
-source or the flags change (the file name carries their hash).  Without
-nvcc the build raises RuntimeError: there is no fallback.
+nvcc compiles each source of ops/csrc/ (ipm_iteration.cu, tube_stage.cu,
+corridor.cu; all include common.cuh) for sm_90a into its own shared
+library with a plain C interface, loaded with ctypes.  A library is built
+at first use into ops/csrc/build/ (git-ignored) and rebuilt whenever its
+source, a header or the flags change (the file name carries their hash).
+`build()` starts one nvcc per source, all at once.  Without nvcc the build
+raises RuntimeError: there is no fallback.
 """
 from __future__ import annotations
 
@@ -15,24 +17,22 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCE = CSRC / "ipm_iteration.cu"
+SOURCES = ("ipm_iteration.cu", "tube_stage.cu", "corridor.cu")
 BUILD_DIR = CSRC / "build"
 NVCC_FALLBACK = "/usr/local/cuda/bin/nvcc"
-# no --use_fast_math: the NaN guard needs IEEE division and isfinite;
+# no --use_fast_math: the NaN guards need IEEE division and isfinite;
 # --expt-relaxed-constexpr lets device code read std::numeric_limits
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "--expt-relaxed-constexpr", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
-N_POINTERS = 23  # 17 inputs, 5 outputs, 1 scratch (see the C entry points)
 
 
 class Built(NamedTuple):
-    lib: ctypes.CDLL
     path: Path
     seconds: float      # build time (0-ish when the library was cached)
     ptxas_log: str      # nvcc -Xptxas -v output: registers, spills
@@ -49,61 +49,68 @@ def find_nvcc() -> str:
             return cand
     raise RuntimeError(
         "nvcc not found on PATH, in $CUDA_HOME/bin or at "
-        f"{NVCC_FALLBACK}: cannot build {SOURCE.name} (the CUDA route has "
-        "no fallback; CPU tensors use the plain PyTorch version)"
+        f"{NVCC_FALLBACK}: cannot build the CUDA kernels of {CSRC.name}/ "
+        "(the CUDA route has no fallback; CPU tensors use the plain "
+        "PyTorch versions)"
     )
 
 
-def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    lib.ipm_scratch_per_lane.argtypes = [ctypes.c_int]
-    lib.ipm_scratch_per_lane.restype = ctypes.c_size_t
-    for name in ("ipm_iteration_f32", "ipm_iteration_f64"):
-        fn = getattr(lib, name)
-        fn.argtypes = (
-            [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
-            + [ctypes.c_void_p] * N_POINTERS
-            + [ctypes.c_void_p]
-        )
-        fn.restype = ctypes.c_int
-    return lib
+def _paths(source: str):
+    src = CSRC / source
+    if source not in SOURCES or not src.is_file():
+        raise ValueError(f"unknown kernel source {source!r} (known: {SOURCES})")
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    stem = f"{src.stem}_{h.hexdigest()[:16]}"
+    return src, BUILD_DIR / f"{stem}.so", BUILD_DIR / f"{stem}.log"
 
 
-def build() -> Built:
-    """Compile (if needed) and load the kernel library."""
+def build(*sources: str) -> dict[str, Built]:
+    """Compile the given sources (default: all), one nvcc process each, all
+    started together; cached libraries are not rebuilt."""
     t0 = time.perf_counter()
-    digest = hashlib.sha256(
-        SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    so = BUILD_DIR / f"ipm_iteration_{digest}.so"
-    log = BUILD_DIR / f"ipm_iteration_{digest}.log"
-    if not so.exists():
-        nvcc = find_nvcc()
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        proc = subprocess.run(
-            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-            capture_output=True, text=True,
-        )
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed with exit code {proc.returncode}:\n"
-                f"{proc.stdout}\n{proc.stderr}"
+    jobs = []
+    for source in sources or SOURCES:
+        src, so, log = _paths(source)
+        proc = tmp = None
+        if not so.exists():
+            nvcc = find_nvcc()
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+            proc = subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
             )
-        log.write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, so)
-    lib = _bind(ctypes.CDLL(str(so)))
-    return Built(
-        lib=lib, path=so, seconds=time.perf_counter() - t0,
-        ptxas_log=log.read_text() if log.exists() else "",
-    )
+        jobs.append((source, so, log, tmp, proc))
+    out, failed = {}, []
+    for source, so, log, tmp, proc in jobs:
+        if proc is not None:
+            stdout, stderr = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"{source}: nvcc exit code {proc.returncode}:\n"
+                              f"{stdout}\n{stderr}")
+                continue
+            log.write_text(stdout + stderr)
+            os.replace(tmp, so)
+        out[source] = Built(
+            path=so, seconds=time.perf_counter() - t0,
+            ptxas_log=log.read_text() if log.exists() else "",
+        )
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return out
 
 
-_built: Built | None = None
+_libs: dict[str, ctypes.CDLL] = {}
 
 
-def load() -> Built:
-    """The kernel library, built at first use in this process."""
-    global _built
-    if _built is None:
-        _built = build()
-    return _built
+def load(source: str, bind: Callable[[ctypes.CDLL], None]) -> ctypes.CDLL:
+    """The library of `source`, built at first use in this process and
+    bound by `bind` (which sets each entry point's argtypes/restype)."""
+    if source not in _libs:
+        lib = ctypes.CDLL(str(build(source)[source].path))
+        bind(lib)
+        _libs[source] = lib
+    return _libs[source]

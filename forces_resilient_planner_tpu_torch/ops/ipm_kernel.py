@@ -21,8 +21,10 @@ from forces_resilient_planner_tpu_torch.config import ModelConfig, SolverConfig
 from forces_resilient_planner_tpu_torch.ops import _build
 from forces_resilient_planner_tpu_torch.solver import ipm_lanes, nlp
 
+SOURCE = "ipm_iteration.cu"
 NZ, NXB, NU, NH = 17, 13, 4, 30
 NIN = 64  # inequality rows per stage: 17 lb + 17 ub + 30 corridor
+N_POINTERS = 23  # 17 inputs, 5 outputs, 1 scratch (see the C entry points)
 
 # kernel launches, over all calls in this process
 LAUNCHES = 0
@@ -50,6 +52,19 @@ _CONSTS = {
     torch.float32: (_consts_struct(ctypes.c_float), "ipm_iteration_f32"),
     torch.float64: (_consts_struct(ctypes.c_double), "ipm_iteration_f64"),
 }
+
+
+def _bind(lib):
+    lib.ipm_scratch_per_lane.argtypes = [ctypes.c_int]
+    lib.ipm_scratch_per_lane.restype = ctypes.c_size_t
+    for name in ("ipm_iteration_f32", "ipm_iteration_f64"):
+        fn = getattr(lib, name)
+        fn.argtypes = (
+            [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+            + [ctypes.c_void_p] * N_POINTERS
+            + [ctypes.c_void_p]
+        )
+        fn.restype = ctypes.c_int
 
 
 def _consts(struct, mcfg: ModelConfig, scfg: SolverConfig):
@@ -143,7 +158,7 @@ def ipm_iteration_fused(
     )
     _check_inputs(zip(names, ins, shapes), Z.dtype, Z.device)
 
-    lib = _build.load().lib
+    lib = _build.load(SOURCE, _bind)
     struct, entry = _CONSTS[Z.dtype]
     consts = _consts(struct, mcfg, scfg)
     key = (Z.device, Z.dtype, N, B)

@@ -28,3 +28,9 @@ def lane_sum(x: torch.Tensor) -> torch.Tensor:
             x = torch.cat([x, torch.zeros_like(x[:1])])
         x = x[0::2] + x[1::2]
     return x[0]
+
+
+def norm3(v: torch.Tensor) -> torch.Tensor:
+    """Euclidean norm over a last axis of length 3, summed x, y, z in order."""
+    return torch.sqrt(v[..., 0] * v[..., 0] + v[..., 1] * v[..., 1]
+                      + v[..., 2] * v[..., 2])
