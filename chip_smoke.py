@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Drives the port's two main paths at full width and holds every hand-written
+Drives the port's main paths at full width and holds every hand-written
 CUDA kernel against its plain PyTorch version on the card:
 
   slice 1, the bench headline: a 256 goals x 16 forces x 1 box = 4096-
@@ -13,13 +13,18 @@ CUDA kernel against its plain PyTorch version on the card:
   nmpc_step_batched at DEFAULT_CONFIG on 4096 robots (N = 20, K = 64 path
   samples, M = 256 obstacles, each robot its own cloud, force, time offset
   and profile), with the tube kernel ops/csrc/tube_stage.cu (K2), the
-  corridor kernel ops/csrc/corridor.cu (K3) and K1.
+  corridor kernel ops/csrc/corridor.cu (K3) and K1;
+  slice 3, the Mehrotra predictor-corrector (SolverConfig.
+  predictor_corrector=True) on the grid and the step, every iteration one
+  Riccati factor K4a and two backsolves K4b of ops/csrc/lqr.cu, and the
+  batched LQR solve solver/riccati.py::solve_lqr_batched through K5a and
+  K5b of the same source.
 
 Phases, one line each (any failure exits non-zero and nothing after it is
 printed):
 
   0. device: needs torch.cuda; prints the card's name and power limit
-  1. build: compiles the three kernel sources with nvcc, all at once;
+  1. build: compiles the four kernel sources with nvcc, all at once;
      prints build seconds and the ptxas register / spill report of each
   2. K1 vs its plain PyTorch version on the card at B = 4096, one
      iteration from the initial state and one after 8 plain iterations:
@@ -29,10 +34,11 @@ printed):
      the same state within 1.25x the plain f32 step's (+1e-3); f32 done
      flags agreeing on >= 99.9% of lanes
   3. slice 1 main path at f32: solved fraction >= 0.999; K1 launches equal
-     to the host-loop iterations stepped (> 0); the first 64 lanes
-     re-solved by the plain path at f64 on the CPU within 1e-3 in u; the
-     grid solved through the plain version on the card agreeing on exit
-     codes for >= 99.5% of lanes
+     to the host-loop iterations stepped (> 0), no K4; the first 64 lanes
+     re-solved by the plain path at f64 on the CPU within 1e-3 in u (at
+     most one of the card's solved lanes missing); the grid solved through
+     the plain versions on the card: solved fraction within 0.005, exit
+     codes agreeing on >= 99.5% of lanes
   4. K1 times: kernel and plain ms per iteration, grid-solve ms per call and
      solves/s over 5 fresh seed sets, mean iterations
   5. K2 vs its plain version at L = B N = 81,920 stage lanes, on random
@@ -57,17 +63,41 @@ printed):
      input sets of each workload; engine/pipeline.py::nmpc_step at B = 1,
      p50 / p99 over 30 calls, in the __graft_entry__._small_cfg
      configuration (reduced caps) and in DEFAULT_CONFIG
+  9. K4 vs its plain version on the predictor-corrector grid's own calls
+     (B = 4096, nh = 30), from the initial IPM state and after 8 plain
+     iterations: f64 |d| <= 1e-9 (1 + |ref|) on every factor and backsolve
+     output; f32 held against the plain version at f64, the kernel's error
+     within 1.25x the plain f32 one's (+1e-3); K4 at f64 with nh = 18 on
+     256 lanes; K5 on random well-conditioned blocks at B = 4096, N = 20:
+     f64 within 1e-9 (1 + |ref|), f32 within 1e-4 (1 + |ref|), the f64
+     kernel solution's KKT residuals within 1e-8; solve_lqr_batched
+     launching K5a and K5b once each
+  10. slice 3 main path at f32: the predictor-corrector grid with phase
+     3's checks, except that K4a launches = host-loop steps, K4b = twice
+     that, no K1, and the solved fraction is printed, not barred; then
+     nmpc_step_batched with the
+     predictor-corrector on phase 7's two workloads with phase 7's checks
+     and the same launch and agreement bars
+  11. slice 3 times: K4a, K4b, K5a and K5b ms per call against their plain
+     versions at B = 4096; the predictor-corrector grid's ms per call,
+     solves/s and mean iterations beside phase 4's monotone ones; the
+     predictor-corrector step's ms per call and steps/s; nmpc_step at B = 1
+     in DEFAULT_CONFIG with the predictor-corrector, p50 / p99 over 30 calls
 
 The {"kernels"} line's max_abs_err is, for every kernel, the f32 kernel
 against its plain version on the main path's inputs at the main path's
 shape (K1: the grid's initial IPM state; K2: the step's stage lanes; K3:
-the step's segments and clouds).
+the step's segments and clouds; K4: the predictor-corrector grid's initial
+calls; K5: the random blocks of phase 9).
 
-Then a {"kernels": [...]} JSON line, the card's name and power limit, and
-last {"ok": true, "device": ...}.  Imports nothing of JAX.
+Then the script's total seconds, a {"kernels": [...]} JSON line, the card's
+name and power limit, and last {"ok": true, "device": ...}.  Imports
+nothing of JAX.
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
 import subprocess
 import sys
@@ -89,17 +119,28 @@ from forces_resilient_planner_tpu_torch.ops import (
     _build,
     corridor_kernel,
     ipm_kernel,
+    lqr_kernel,
     tube_kernel,
 )
-from forces_resilient_planner_tpu_torch.solver import ipm_lanes, nlp
+from forces_resilient_planner_tpu_torch.solver import ipm_lanes, nlp, riccati
 from forces_resilient_planner_tpu_torch.solver.problems import hover_warm_start
 
 CSRC = "forces_resilient_planner_tpu_torch/ops/csrc/"
 KERNEL_SOURCE = CSRC + "ipm_iteration.cu"
 KERNEL_REPLACES = "forces_resilient_planner_tpu/ops/ipm_pallas.py:218"
+LQR_PALLAS = "forces_resilient_planner_tpu/ops/lqr_pallas.py:"
+# the Riccati kernels of ops/csrc/lqr.cu (ops/lqr_kernel.py's LAUNCHES
+# keys): their label and the Pallas kernel body each replaces
+LQR_KERNELS = {
+    "lqr_factor_fused": ("K4a", LQR_PALLAS + "269"),
+    "lqr_backsolve_fused": ("K4b", LQR_PALLAS + "316"),
+    "lqr_factor": ("K5a", LQR_PALLAS + "100"),
+    "lqr_backsolve": ("K5b", LQR_PALLAS + "132"),
+}
 MAX_ITERS = 60.0
 KEYS = pipeline_batch.PIPELINE_ARG_KEYS
 STEP_B, STEP_K, STEP_M = 4096, 64, 256
+LQR_B, LQR_N = 4096, 20
 
 
 def fail(msg: str):
@@ -276,16 +317,23 @@ def step(inputs, cfg=DEFAULT_CONFIG):
                                             cfg=cfg)
 
 
+@contextlib.contextmanager
 def plain_routes():
     """Every kernel wrapper replaced by its plain PyTorch version."""
-    return (
-        mock.patch.object(tube_kernel, "tube_stage_lanes",
-                          tube_kernel.tube_stage_reference),
-        mock.patch.object(corridor_kernel, "decompose_stages_lanes",
-                          corridor_kernel.decompose_stages_reference),
-        mock.patch.object(ipm_kernel, "ipm_iteration_fused",
-                          ipm_kernel.ipm_iteration_reference),
-    )
+    with contextlib.ExitStack() as stack:
+        for module, name, plain in (
+            (tube_kernel, "tube_stage_lanes", tube_kernel.tube_stage_reference),
+            (corridor_kernel, "decompose_stages_lanes",
+             corridor_kernel.decompose_stages_reference),
+            (ipm_kernel, "ipm_iteration_fused",
+             ipm_kernel.ipm_iteration_reference),
+            (lqr_kernel, "lqr_factor_fused_lanes",
+             lqr_kernel.lqr_factor_fused_reference),
+            (lqr_kernel, "lqr_backsolve_fused_lanes",
+             lqr_kernel.lqr_backsolve_fused_reference),
+        ):
+            stack.enter_context(mock.patch.object(module, name, plain))
+        yield
 
 
 def tube_check(x, u, device):
@@ -410,30 +458,124 @@ def corridor_f64(args, device, label):
         f"max |db| {db.max().item():.2e} (bar 1e-9 on every row)")
 
 
-def launch_counts():
-    return (ipm_kernel.LAUNCHES, tube_kernel.LAUNCHES,
-            corridor_kernel.LAUNCHES)
-
-
-def check_step(inputs, dev, label):
-    """Phase 7 on one input set: the step through the kernels with its
-    launch counts, finiteness, the f64 audit, and the same step through the
-    plain versions on the card.  Returns the K2 and K3 launch counts."""
-    cfg = DEFAULT_CONFIG
-    B = inputs["mpc_output"].shape[0]
+def reset_counts():
+    """Every kernel's launch count and the host-loop step count to 0."""
     torch.cuda.synchronize()
     tube_kernel.LAUNCHES = corridor_kernel.LAUNCHES = 0
     ipm_kernel.LAUNCHES = 0
+    for name in lqr_kernel.LAUNCHES:
+        lqr_kernel.LAUNCHES[name] = 0
     ipm_lanes.STEPS = 0
-    res = step(inputs)
+
+
+def launch_counts():
+    """(K1, K2, K3, K4a, K4b) launches."""
+    return (ipm_kernel.LAUNCHES, tube_kernel.LAUNCHES,
+            corridor_kernel.LAUNCHES, lqr_kernel.LAUNCHES["lqr_factor_fused"],
+            lqr_kernel.LAUNCHES["lqr_backsolve_fused"])
+
+
+def solver_launches_ok(counts, steps, scfg) -> bool:
+    """Monotone with 30 corridor rows: one K1 per host-loop step and no K4;
+    predictor-corrector: one K4a and two K4b per step and no K1."""
+    l1, l4a, l4b = counts[0], counts[3], counts[4]
+    if scfg.predictor_corrector:
+        return l1 == 0 and l4a == steps > 0 and l4b == 2 * steps
+    return l1 == steps > 0 and l4a == l4b == 0
+
+
+def check_grid(dev, cfg, phase, solved_min=None):
+    """Phase 3 (phase 10 with the predictor-corrector): the bench grid of
+    seed 1 solved at f32 through the kernels, its launch counts (one K1 per
+    host-loop step, or one K4a and two K4b), finite Z and finite accepted
+    outputs, the solved fraction (>= solved_min when given, else printed),
+    lanes 0-63 re-solved at f64 on the CPU (at most one of the card's
+    solved lanes missing, u within 1e-3), and the same solve through the
+    plain versions on the card: solved fraction within 0.005, exit codes
+    agreeing on >= 99.5% of lanes.  Returns the launch counts (K1, K2, K3,
+    K4a, K4b)."""
+    goals, forces = bench.bench_seeds(1)
+    reset_counts()
+    res = batch.solve_scenario_grid(cfg, goals, forces, bench.HALVES,
+                                    dtype=torch.float32, device=dev)
     torch.cuda.synchronize()
-    l1, l2, l3 = launch_counts()
+    counts, steps = launch_counts(), ipm_lanes.STEPS
+    if "jax" in sys.modules:
+        fail("jax was imported")
+    if not solver_launches_ok(counts, steps, cfg.solver):
+        fail(f"grid launches K1 {counts[0]}, K4a {counts[3]}, K4b {counts[4]} "
+             f"vs host-loop steps {steps}")
+    ec = res.exit_code.cpu()
+    acc = ec == 1
+    B = ec.numel()
+    if B != bench.N_GOALS * bench.N_FORCES * len(bench.HALVES):
+        fail(f"grid has {B} lanes")
+    if not torch.isfinite(res.Z).all():
+        fail("non-finite Z")
+    for name in ("lam", "s", "mu_d", "kkt_error"):
+        if not torch.isfinite(getattr(res, name)[acc.to(dev)]).all():
+            fail(f"non-finite {name} on accepted lanes")
+    solved = acc.double().mean().item()
+    if solved_min is not None and solved < solved_min:
+        fail(f"solved fraction {solved:.6f} < {solved_min}")
+
+    ref64 = batch.solve_scenario_grid(cfg, goals[:4], forces, bench.HALVES,
+                                      dtype=torch.float64, device="cpu")
+    both = (ref64.exit_code == 1) & acc[:64]
+    du = (res.Z[:64, :, 0:4].double().cpu() - ref64.Z[:, :, 0:4]).abs()
+    du_max = du[both].max().item() if both.any() else float("inf")
+    if both.sum() < acc[:64].sum() - 1 or du_max > 1e-3:
+        fail(f"f64 CPU re-solve: {int(both.sum())} lanes solved by both of "
+             f"{int(acc[:64].sum())}, max |du| {du_max:.3e} (bar 1e-3)")
+
+    with plain_routes():
+        plain = batch.solve_scenario_grid(cfg, goals, forces, bench.HALVES,
+                                          dtype=torch.float32, device=dev)
+    torch.cuda.synchronize()
+    if launch_counts() != counts:
+        fail("the plain grid solve launched a kernel")
+    ec_p = plain.exit_code.cpu()
+    solved_p = (ec_p == 1).double().mean().item()
+    agree = (ec_p == ec).double().mean().item()
+    codes = {int(c): int((ec == c).sum()) for c in ec.unique()}
+    label = ("main path" if not cfg.solver.predictor_corrector else
+             "predictor-corrector grid")
+    say(f"phase {phase} {label} B={B} f32: solved {solved:.6f}"
+        f"{' (not barred)' if solved_min is None else ''}, exit codes "
+        f"{codes}, launches K1 {counts[0]} K4a {counts[3]} K4b {counts[4]}, "
+        f"host-loop steps {steps}, mean iters "
+        f"{res.iters.double().mean().item():.3f}, max iters "
+        f"{int(res.iters.max())}; f64 CPU re-solve of lanes 0-63: max |du| "
+        f"{du_max:.3e} over {int(both.sum())} lanes; plain versions on the "
+        f"card: solved {solved_p:.6f}, exit codes agree on {agree:.6f}")
+    if abs(solved - solved_p) > 0.005:
+        fail(f"grid solved {solved:.6f} vs plain {solved_p:.6f}")
+    if agree < 0.995:
+        fail(f"grid exit codes agree on {agree:.6f} < 0.995 of lanes")
+    return counts
+
+
+def check_step(inputs, dev, label, cfg=DEFAULT_CONFIG, phase=7,
+               agree_min=None):
+    """Phase 7 (phase 10 with the predictor-corrector) on one input set: the
+    step through the kernels with its launch counts, finiteness, the f64
+    audit, and the same step through the plain versions on the card, its
+    solved fraction within 0.005 and, when agree_min is given, its exit
+    codes agreeing on at least that share of robots.  Returns the launch
+    counts (K1, K2, K3, K4a, K4b)."""
+    B = inputs["mpc_output"].shape[0]
+    reset_counts()
+    res = step(inputs, cfg)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    l1, l2, l3, l4a, l4b = counts
     steps = ipm_lanes.STEPS
     if "jax" in sys.modules:
         fail("jax was imported")
-    if not (l2 == 1 and l3 == 1 and l1 == steps > 0):
-        fail(f"launches: K2 {l2}, K3 {l3} (want 1 each), K1 {l1} vs "
-             f"host-loop steps {steps}")
+    if not (l2 == 1 and l3 == 1 and solver_launches_ok(counts, steps,
+                                                       cfg.solver)):
+        fail(f"launches: K2 {l2}, K3 {l3} (want 1 each), K1 {l1}, K4a {l4a}, "
+             f"K4b {l4b} vs host-loop steps {steps}")
     ec = res.exit_code.cpu()
     acc = ec == 1
     solved = acc.double().mean().item()
@@ -448,9 +590,9 @@ def check_step(inputs, dev, label):
     pen, n_pen, viol, n_both, du = certificate(res, inputs, cfg)
     solved64 = int(acc[:64].sum())
     codes = {int(c): int((ec == c).sum()) for c in ec.unique()}
-    say(f"phase 7 main path nmpc_step_batched B={B} f32{label}: solved "
+    say(f"phase {phase} main path nmpc_step_batched B={B} f32{label}: solved "
         f"{solved:.6f}, exit codes {codes}, launches K2 {l2} K3 {l3} K1 {l1} "
-        f"= host-loop steps {steps}, mean iters "
+        f"K4a {l4a} K4b {l4b}, host-loop steps {steps}, mean iters "
         f"{res.iters.double().mean().item():.3f}; f64 audit: max "
         f"obstacle penetration {pen} m ({n_pen} stages), max accepted "
         f"corridor violation {viol:.3e}, re-solve of robots 0-63 max |du| "
@@ -463,25 +605,25 @@ def check_step(inputs, dev, label):
         fail(f"f64 re-solve: {n_both} robots solved by both of {solved64}, "
              f"max |du| {du:.3e} (bar 1e-3)")
 
-    before = launch_counts()
-    patches = plain_routes()
-    with patches[0], patches[1], patches[2]:
-        plain = step(inputs)
+    with plain_routes():
+        plain = step(inputs, cfg)
     torch.cuda.synchronize()
-    if launch_counts() != before:
+    if launch_counts() != counts:
         fail("the plain step launched a kernel")
     ec_p = plain.exit_code.cpu()
     solved_p = (ec_p == 1).double().mean().item()
     agree = (ec_p == ec).double().mean().item()
-    say(f"phase 7 plain versions on the card{label}: solved {solved_p:.6f} "
-        f"(kernel path {solved:.6f}), exit codes agree on {agree:.6f} of "
-        f"robots")
+    say(f"phase {phase} plain versions on the card{label}: solved "
+        f"{solved_p:.6f} (kernel path {solved:.6f}), exit codes agree on "
+        f"{agree:.6f} of robots")
     if abs(solved - solved_p) > 0.005:
         fail(f"solved fraction {solved:.6f} vs plain {solved_p:.6f}")
-    return l2, l3
+    if agree_min is not None and agree < agree_min:
+        fail(f"exit codes agree on {agree:.6f} < {agree_min} of robots")
+    return counts
 
 
-def one_robot_latency(cfg, label, M, dev, card, calls=30):
+def one_robot_latency(cfg, label, M, dev, card, calls=30, phase=8):
     """engine/pipeline.py::nmpc_step (B = 1) p50 / p99 over `calls` calls,
     each with a fresh 1e-3 perturbation of the state and force."""
     f32 = torch.float32
@@ -508,7 +650,7 @@ def one_robot_latency(cfg, label, M, dev, card, calls=30):
         lat.append(time.perf_counter() - t0)
         ec.append(int(r.exit_code))
     lat = 1e3 * np.asarray(lat)
-    say(f"phase 8 nmpc_step B=1 {label} M={M} f32 [{card}]: p50 "
+    say(f"phase {phase} nmpc_step B=1 {label} M={M} f32 [{card}]: p50 "
         f"{np.percentile(lat, 50):.2f} ms, p99 {np.percentile(lat, 99):.2f} "
         f"ms over {calls} calls, solved {np.mean(np.asarray(ec) == 1):.3f}")
 
@@ -550,7 +692,7 @@ def run_slice2(dev, card):
     del in64
 
     # ---- phase 7: the slice-2 main path -----------------------------------
-    l2, l3 = check_step(inputs, dev, "")
+    _, l2, l3, _, _ = check_step(inputs, dev, "")
     check_step(step_inputs(2, B, f32, dev, drift=True), dev,
                ", every 4th robot drifted")
 
@@ -570,24 +712,7 @@ def run_slice2(dev, card):
         f"N={N} M={STEP_M}")
 
     for drift, label in ((False, ""), (True, ", every 4th robot drifted")):
-        sets = [step_inputs(seed, B, f32, dev, drift=drift)
-                for seed in range(1001, 1006)]
-        torch.cuda.synchronize()
-        lat, solved_t, iters = [], [], []
-        for a in sets:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            r = step(a)
-            torch.cuda.synchronize()
-            lat.append(time.perf_counter() - t0)
-            solved_t.append((r.exit_code == 1).double().mean().item())
-            iters.append(r.iters.double().mean().item())
-        lat_ms = 1e3 * np.asarray(lat)
-        say(f"phase 8 nmpc_step_batched B={B} f32{label} [{card}]: "
-            f"{lat_ms.mean():.2f} ms/call (min {lat_ms.min():.2f}, max "
-            f"{lat_ms.max():.2f}), {B / lat_ms.mean() * 1e3:.1f} steps/s, "
-            f"solved {np.mean(solved_t):.6f}, mean iters {np.mean(iters):.3f}")
-        del sets
+        step_times(cfg, dev, drift, label, card, 8)
 
     import __graft_entry__
 
@@ -606,12 +731,348 @@ def run_slice2(dev, card):
     ]
 
 
-def main() -> int:
-    # ---- phase 0: device ------------------------------------------------
+# ---------------------------------------------------------------------------
+# slice 3: the Mehrotra predictor-corrector and the Riccati kernels
+# ---------------------------------------------------------------------------
+
+def with_pc(cfg):
+    """cfg with the Mehrotra predictor-corrector on."""
+    return dataclasses.replace(
+        cfg, solver=dataclasses.replace(cfg.solver, predictor_corrector=True))
+
+
+def lane_state(state):
+    """bench_lanes' packed state as lane_step's (Z, lam, s, mu_d, mu, it,
+    done, err)."""
+    Z, lam, s, mu_d, scal = state
+    return (Z, lam, s, mu_d, scal[0], scal[1].to(torch.int32),
+            scal[2] > 0.5, scal[3])
+
+
+def record_k4(st, params, cfg):
+    """One plain lane_step from st with the K4 wrappers' arguments recorded.
+    Returns the factor's arguments and the list of each backsolve's
+    arguments (against the plain factor)."""
+    calls = []
+
+    def recorded(plain):
+        def wrapper(*args):
+            calls.append(args)
+            return plain(*args)
+        return wrapper
+
+    with mock.patch.object(
+            lqr_kernel, "lqr_factor_fused_lanes",
+            recorded(lqr_kernel.lqr_factor_fused_reference)), \
+        mock.patch.object(
+            lqr_kernel, "lqr_backsolve_fused_lanes",
+            recorded(lqr_kernel.lqr_backsolve_fused_reference)):
+        ipm_lanes.lane_step(st, params, cfg.model, cfg.solver, int(MAX_ITERS))
+    return calls[0], calls[1:]
+
+
+def as_f64(args):
+    """args with every tensor (and every field of a factor) in float64."""
+    return tuple(
+        riccati.LQRFactor(*(t.double() for t in a))
+        if isinstance(a, riccati.LQRFactor)
+        else a.double() if torch.is_tensor(a) else a
+        for a in args)
+
+
+def rel_dev(x, y):
+    """max |x - y| / (1 + |y|)"""
+    return ((x - y).abs() / (1.0 + y.abs())).max().item()
+
+
+def k4_jobs(fac_args, solve_args):
+    """(label, kernel wrapper, plain version, args) of K4a and each K4b."""
+    return [("K4a", lqr_kernel.lqr_factor_fused_lanes,
+             lqr_kernel.lqr_factor_fused_reference, fac_args)] + [
+        (f"K4b rhs {i + 1}", lqr_kernel.lqr_backsolve_fused_lanes,
+         lqr_kernel.lqr_backsolve_fused_reference, args)
+        for i, args in enumerate(solve_args)]
+
+
+def hold_kernels(jobs, rel_tol, against_f64):
+    """Each job's kernel against its plain version on the same arguments.
+
+    against_f64=False: every output within rel_tol (1 + |plain|).
+    against_f64=True (f32 inputs): both held against the plain version at
+    f64 on the same values; per output the kernel's max relative error must
+    be within 1.25x the plain f32 one's, plus rel_tol.
+    Returns {label: max |kernel - plain|} and a report."""
+    worst, report = {}, []
+    for label, kernel, plain, args in jobs:
+        got = kernel(*args)
+        ref = plain(*args)
+        truth = plain(*as_f64(args)) if against_f64 else None
+        torch.cuda.synchronize()
+        worst[label], rel_all, e_k_all, e_p_all = 0.0, 0.0, 0.0, 0.0
+        for name, g, r in zip(got._fields, got, ref):
+            if not torch.isfinite(g).all():
+                fail(f"{label} {name}: non-finite kernel output")
+            worst[label] = max(worst[label], (g - r).abs().max().item())
+            rel = rel_dev(g, r)
+            rel_all = max(rel_all, rel)
+            if truth is None:
+                if rel > rel_tol:
+                    fail(f"{label} {name}: max rel {rel:.3e} > {rel_tol}")
+                continue
+            t = getattr(truth, name)
+            e_k, e_p = rel_dev(g.double(), t), rel_dev(r.double(), t)
+            e_k_all, e_p_all = max(e_k_all, e_k), max(e_p_all, e_p)
+            if e_k > 1.25 * e_p + rel_tol:
+                fail(f"{label} {name}: kernel error vs f64 {e_k:.3e} > 1.25 x "
+                     f"plain {e_p:.3e} + {rel_tol}")
+        report.append(
+            f"{label} max rel {rel_all:.2e}" if truth is None else
+            f"{label} vs f64: kernel {e_k_all:.2e}, plain {e_p_all:.2e}")
+    return worst, "; ".join(report)
+
+
+def check_k4(dev, cfg_pc):
+    """Phase 9, K4: the PC grid's own K4 calls (bench grid of seed 1, B =
+    4096) from the initial IPM state and after 8 plain PC iterations, at f64
+    and f32; then nh = 18 at f64 on 256 lanes.  Returns the f32 max
+    |kernel - plain| of K4a and K4b from the initial state and the f32
+    initial-state arguments (for the times)."""
+    errs, f32_args = {}, None
+    for dtype in (torch.float64, torch.float32):
+        f64 = dtype == torch.float64
+        rel_tol = 1e-9 if f64 else 1e-3
+        bar = (f"{rel_tol:g} (1+|ref|)" if f64 else
+               f"1.25x the plain f32 error vs f64 + {rel_tol:g}")
+        state, params = bench_lanes(cfg_pc, 1, dtype, dev)
+        st = lane_state(state)
+        B = st[0].shape[-1]
+        fa, sa = record_k4(st, params, cfg_pc)
+        w0, rep0 = hold_kernels(k4_jobs(fa, sa), rel_tol, not f64)
+        for _ in range(8):
+            st = ipm_lanes.lane_step(st, params, cfg_pc.model, cfg_pc.solver,
+                                     int(MAX_ITERS), plain=True)
+        w8, rep8 = hold_kernels(k4_jobs(*record_k4(st, params, cfg_pc)),
+                                rel_tol, not f64)
+        say(f"phase 9 K4 vs plain {str(dtype)[6:]} B={B} nh=30, the PC grid's "
+            f"calls: initial state: {rep0}; after 8 plain PC iterations: "
+            f"{rep8} (bar {bar})")
+        if f64:
+            nh, lanes = 18, 256
+
+            def cut(a):
+                return a[..., :lanes].contiguous()
+
+            fa18 = (*(cut(a) for a in fa[:5]), cut(fa[5][:, :34 + nh]),
+                    cut(fa[6][:, :nh]), cut(fa[7]), cut(fa[8]), *fa[9:])
+            fac18 = lqr_kernel.lqr_factor_fused_reference(*fa18)
+            sa18 = [(fac18, *(cut(a) for a in args[1:])) for args in sa]
+            _, rep = hold_kernels(k4_jobs(fa18, sa18), rel_tol, False)
+            say(f"phase 9 K4 vs plain float64 B={lanes} nh={nh}: {rep} (bar "
+                f"{bar})")
+        else:
+            errs = {"lqr_factor_fused": w0["K4a"],
+                    "lqr_backsolve_fused": max(v for k, v in w0.items()
+                                               if k != "K4a")}
+            f32_args = (fa, sa)
+    return errs, f32_args
+
+
+def random_lqr(rng, N, Bn):
+    """Well-conditioned random LQR data, lane-major numpy (Q, R, S, qx, qu,
+    A, B, c, dx0): tools/kernel_parity_debug.py::_random_lqr."""
+    nxb, nu = lqr_kernel.NXB, lqr_kernel.NU
+
+    def spd(n):
+        M = rng.standard_normal((N, n, n, Bn))
+        return (np.einsum("nikb,njkb->nijb", M, M) / n
+                + np.eye(n)[None, :, :, None])
+
+    Q = spd(nxb)
+    R = spd(nu)
+    S = 0.1 * rng.standard_normal((N, nu, nxb, Bn))
+    qx = rng.standard_normal((N, nxb, Bn))
+    qu = rng.standard_normal((N, nu, Bn))
+    A = np.eye(nxb)[None, :, :, None] + 0.05 * rng.standard_normal(
+        (N - 1, nxb, nxb, Bn))
+    B = 0.1 * rng.standard_normal((N - 1, nxb, nu, Bn))
+    c = 0.01 * rng.standard_normal((N - 1, nxb, Bn))
+    dx0 = rng.standard_normal((9, Bn))
+    return Q, R, S, qx, qu, A, B, c, dx0
+
+
+def kkt_residuals(args, sol):
+    """Max |residual| of each KKT condition of the LQR at the solution
+    (tools/kernel_parity_debug.py::check_lqr_kkt); lane-major args and
+    solution, numpy or CPU tensors."""
+    Q, R, S, qx, qu, A, B, c, dx0 = (np.moveaxis(np.asarray(a), -1, 0)
+                                     for a in args)
+    dxb, du, nu = (np.moveaxis(np.asarray(a), -1, 0) for a in sol[:3])
+    pred = (np.einsum("bnij,bnj->bni", A, dxb[:, :-1])
+            + np.einsum("bnij,bnj->bni", B, du[:, :-1]) + c)
+    r_u = (np.einsum("bnij,bnj->bni", R[:, :-1], du[:, :-1])
+           + np.einsum("bnij,bnj->bni", S[:, :-1], dxb[:, :-1])
+           + qu[:, :-1] + np.einsum("bnji,bnj->bni", B, nu[:, 1:]))
+    r_uT = (np.einsum("bij,bj->bi", R[:, -1], du[:, -1])
+            + np.einsum("bij,bj->bi", S[:, -1], dxb[:, -1]) + qu[:, -1])
+    return {
+        "init": np.abs(dxb[:, 0, :9] - dx0).max(),
+        "dynamics": np.abs(pred - dxb[:, 1:]).max(),
+        "stationarity": np.abs(r_u).max(),
+        "terminal": np.abs(r_uT).max(),
+        "dtheta costate": np.abs(nu[:, 0, 9:]).max(),
+    }
+
+
+def check_k5(dev):
+    """Phase 9, K5: random well-conditioned blocks at B = 4096, N = 20,
+    against the plain factor and backsolve (f64 within 1e-9 (1+|ref|), f32
+    within 1e-4 (1+|ref|)); the f64 kernel solution's KKT residuals within
+    1e-8; then the path, riccati.solve_lqr_batched at f32, counted.
+    Returns the f32 max |kernel - plain|, the path's launches and the f32
+    arguments (for the times)."""
+    args = random_lqr(np.random.default_rng(0), LQR_N, LQR_B)
+    for dtype, rel_tol in ((torch.float64, 1e-9), (torch.float32, 1e-4)):
+        t = [torch.as_tensor(a, dtype=dtype, device=dev) for a in args]
+        Q, R, S, qx, qu, A, B, c, dx0 = t
+        fac = lqr_kernel.lqr_factor_reference(Q, R, S, A, B)
+        worst, rep = hold_kernels([
+            ("K5a", lqr_kernel.lqr_factor_lanes,
+             lqr_kernel.lqr_factor_reference, (Q, R, S, A, B)),
+            ("K5b", lqr_kernel.lqr_backsolve_lanes,
+             lqr_kernel.lqr_backsolve_reference,
+             (fac, A, B, c, qx, qu, dx0)),
+        ], rel_tol, False)
+        msg = ""
+        if dtype == torch.float64:
+            res = kkt_residuals(args, [a.cpu() for a in
+                                       riccati.solve_lqr_batched(*t)])
+            if max(res.values()) > 1e-8:
+                fail(f"K5 f64 KKT residuals {res} > 1e-8")
+            msg = "; KKT residuals of the kernel solution: " + ", ".join(
+                f"{k} {v:.1e}" for k, v in res.items()) + " (bar 1e-8)"
+        say(f"phase 9 K5 vs plain {str(dtype)[6:]} B={LQR_B} N={LQR_N} random "
+            f"blocks: {rep} (bar {rel_tol:g} (1+|ref|)){msg}")
+    reset_counts()
+    riccati.solve_lqr_batched(*t)
+    torch.cuda.synchronize()
+    launches = {k: lqr_kernel.LAUNCHES[k] for k in ("lqr_factor",
+                                                     "lqr_backsolve")}
+    if any(v != 1 for v in launches.values()):
+        fail(f"riccati.solve_lqr_batched launched {launches} (want 1 each)")
+    say(f"phase 9 the batched-LQR path riccati.solve_lqr_batched f32: "
+        f"launches K5a {launches['lqr_factor']} K5b "
+        f"{launches['lqr_backsolve']}")
+    return ({"lqr_factor": worst["K5a"], "lqr_backsolve": worst["K5b"]},
+            launches, t)
+
+
+def grid_times(cfg, dev):
+    """solve_scenario_grid at f32 over 5 fresh bench seed sets after a
+    warm-up: (ms per call, mean iterations)."""
+    batch.solve_scenario_grid(cfg, *bench.bench_seeds(1000), bench.HALVES,
+                              device=dev)
+    lat, iters = [], []
+    for seed in range(1001, 1006):
+        g, f = bench.bench_seeds(seed)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = batch.solve_scenario_grid(cfg, g, f, bench.HALVES, device=dev)
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - t0)
+        iters.append(r.iters.double().mean().item())
+    return 1e3 * np.asarray(lat), float(np.mean(iters))
+
+
+def step_times(cfg, dev, drift, label, card, phase):
+    """nmpc_step_batched at f32 over 5 pre-staged fresh input sets."""
+    B = STEP_B
+    sets = [step_inputs(seed, B, torch.float32, dev, drift=drift)
+            for seed in range(1001, 1006)]
+    torch.cuda.synchronize()
+    lat, solved_t, iters = [], [], []
+    for a in sets:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = step(a, cfg)
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - t0)
+        solved_t.append((r.exit_code == 1).double().mean().item())
+        iters.append(r.iters.double().mean().item())
+    lat_ms = 1e3 * np.asarray(lat)
+    say(f"phase {phase} nmpc_step_batched B={B} f32{label} [{card}]: "
+        f"{lat_ms.mean():.2f} ms/call (min {lat_ms.min():.2f}, max "
+        f"{lat_ms.max():.2f}), {B / lat_ms.mean() * 1e3:.1f} steps/s, "
+        f"solved {np.mean(solved_t):.6f}, mean iters {np.mean(iters):.3f}")
+
+
+def run_slice3(dev, card, mono_grid):
+    """Phases 9-11; mono_grid = phase 4's (ms per call, mean iterations).
+    Returns the {"kernels"} entries of K4a, K4b, K5a and K5b."""
+    cfg_pc = with_pc(bench.bench_config())
+    f32 = torch.float32
+
+    # ---- phase 9: K4 and K5 vs plain --------------------------------------
+    errs, (fa, sa) = check_k4(dev, cfg_pc)
+    errs5, launches, k5 = check_k5(dev)
+    errs.update(errs5)
+
+    # ---- phase 10: the predictor-corrector main path ----------------------
+    counts = check_grid(dev, cfg_pc, 10)
+    launches.update(lqr_factor_fused=counts[3],
+                    lqr_backsolve_fused=counts[4])
+    step_pc = with_pc(DEFAULT_CONFIG)
+    for drift, label in ((False, ""), (True, ", every 4th robot drifted")):
+        check_step(step_inputs(1 + drift, STEP_B, f32, dev, drift=drift), dev,
+                   f", predictor-corrector{label}", step_pc, 10, 0.995)
+
+    # ---- phase 11: times --------------------------------------------------
+    Q, R, S, qx, qu, A, B, c, dx0 = k5
+    fac5 = lqr_kernel.lqr_factor_reference(Q, R, S, A, B)
+    calls = {
+        "lqr_factor_fused": fa,
+        "lqr_backsolve_fused": sa[0],
+        "lqr_factor": (Q, R, S, A, B),
+        "lqr_backsolve": (fac5, A, B, c, qx, qu, dx0),
+    }
+    ms, plain_ms = {}, {}
+    for name, args in calls.items():
+        kernel = getattr(lqr_kernel, name + "_lanes")
+        plain = getattr(lqr_kernel, name + "_reference")
+        ms[name] = cuda_ms(lambda: kernel(*args), 20)
+        plain_ms[name] = cuda_ms(lambda: plain(*args), 3)
+    say(f"phase 11 kernels f32 B={LQR_B} N={LQR_N} [{card}]: " + "; ".join(
+        f"{LQR_KERNELS[n][0]} {ms[n]:.3f} ms vs plain {plain_ms[n]:.3f} ms"
+        for n in calls) + " (K4: the PC grid's initial-state calls, K5: the "
+        "random blocks)")
+    lat_ms, iters = grid_times(cfg_pc, dev)
+    mono_ms, mono_iters = mono_grid
+    Bg = bench.N_GOALS * bench.N_FORCES * len(bench.HALVES)
+    say(f"phase 11 PC grid solve B={Bg} f32 [{card}]: {lat_ms.mean():.2f} "
+        f"ms/call (min {lat_ms.min():.2f}, max {lat_ms.max():.2f}), "
+        f"{Bg / lat_ms.mean() * 1e3:.1f} solves/s, mean iters {iters:.3f}; "
+        f"monotone (phase 4): {mono_ms:.2f} ms/call, "
+        f"{Bg / mono_ms * 1e3:.1f} solves/s, mean iters {mono_iters:.3f}")
+    for drift, label in ((False, ""), (True, ", every 4th robot drifted")):
+        step_times(step_pc, dev, drift, f", predictor-corrector{label}", card,
+                   11)
+    one_robot_latency(step_pc, "DEFAULT_CONFIG predictor-corrector", STEP_M,
+                      dev, card, phase=11)
+
+    return [
+        {"name": name, "route": "cuda", "source": CSRC + "lqr.cu",
+         "replaces": LQR_KERNELS[name][1], "launches": launches[name],
+         "max_abs_err": errs[name], "ms": ms[name],
+         "plain_ms": plain_ms[name]}
+        for name in LQR_KERNELS
+    ]
+
+
+def device_phase():
+    """Phase 0: the card, or None without one."""
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
               "test needs an NVIDIA GPU", file=sys.stderr)
-        return 1
+        return None
     if "jax" in sys.modules:
         fail("jax was imported")
     dev = torch.device("cuda:0")
@@ -622,8 +1083,11 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     say(f"phase 0 device: {kind} | nvidia-smi: {card} | "
         f"torch {torch.__version__} cuda {torch.version.cuda}")
+    return dev, card, kind
 
-    # ---- phase 1: build ---------------------------------------------------
+
+def build_phase():
+    """Phase 1: every kernel source built, one nvcc each, all at once."""
     t0 = time.perf_counter()
     for source, built in _build.build().items():
         ptxas = [ln.strip() for ln in built.ptxas_log.splitlines()
@@ -631,6 +1095,18 @@ def main() -> int:
         say(f"phase 1 build {source}: {built.seconds:.1f} s -> "
             f"{built.path.name}; " + " | ".join(ptxas))
     say(f"phase 1 build: all sources in {time.perf_counter() - t0:.1f} s")
+
+
+def main() -> int:
+    t_start = time.perf_counter()
+    # ---- phase 0: device ------------------------------------------------
+    found = device_phase()
+    if found is None:
+        return 1
+    dev, card, kind = found
+
+    # ---- phase 1: build ---------------------------------------------------
+    build_phase()
 
     cfg = bench.bench_config()
 
@@ -652,55 +1128,8 @@ def main() -> int:
             f" done-agree {r8[2]:.6f} (bound {rel_tol:g} (1+|ref|))")
 
     # ---- phase 3: main path ---------------------------------------------
-    goals, forces = bench.bench_seeds(1)
-    ipm_kernel.LAUNCHES = 0
-    ipm_lanes.STEPS = 0
-    res = batch.solve_scenario_grid(
-        cfg, goals, forces, bench.HALVES, dtype=torch.float32, device=dev
-    )
-    torch.cuda.synchronize()
-    launches, steps = ipm_kernel.LAUNCHES, ipm_lanes.STEPS
-    if "jax" in sys.modules:
-        fail("jax was imported")
-    ec = res.exit_code.cpu().numpy()
-    B = ec.size
-    solved = float((ec == 1).mean())
-    if B != bench.N_GOALS * bench.N_FORCES * len(bench.HALVES):
-        fail(f"grid has {B} lanes")
-    if not torch.isfinite(res.Z).all():
-        fail("non-finite Z")
-    if solved < 0.999:
-        fail(f"solved fraction {solved:.6f} < 0.999")
-    if not (launches == steps and launches > 0):
-        fail(f"kernel launches {launches} != host-loop steps {steps} (or 0)")
-
-    ref64 = batch.solve_scenario_grid(
-        cfg, goals[:4], forces, bench.HALVES, dtype=torch.float64,
-        device="cpu",
-    )
-    both = (ref64.exit_code.numpy() == 1) & (ec[:64] == 1)
-    du = (res.Z[:64, :, 0:4].double().cpu() - ref64.Z[:, :, 0:4]).abs()
-    du_max = du[torch.from_numpy(both)].max().item()
-    if both.sum() < 63 or du_max > 1e-3:
-        fail(f"f64 CPU re-solve: {both.sum()} of 64 lanes solved by both, "
-             f"max |du| {du_max:.3e} (bar 1e-3)")
-
-    with mock.patch.object(ipm_kernel, "ipm_iteration_fused",
-                           ipm_kernel.ipm_iteration_reference):
-        plain = batch.solve_scenario_grid(
-            cfg, goals, forces, bench.HALVES, dtype=torch.float32, device=dev
-        )
-    torch.cuda.synchronize()
-    if ipm_kernel.LAUNCHES != launches:
-        fail("the plain solve launched the kernel")
-    ec_agree = float((plain.exit_code.cpu().numpy() == ec).mean())
-    if ec_agree < 0.995:
-        fail(f"kernel and plain grid exit codes agree on {ec_agree:.6f} < 0.995")
-    say(f"phase 3 main path B={B} f32: solved {solved:.6f}, kernel launches "
-        f"{launches} = host-loop steps {steps}, mean iters "
-        f"{res.iters.double().mean().item():.3f}; f64 CPU re-solve of lanes "
-        f"0-63: max |du| {du_max:.3e} over {both.sum()} lanes; plain-path "
-        f"exit-code agreement {ec_agree:.6f}")
+    launches = check_grid(dev, cfg, 3, solved_min=0.999)[0]
+    B = bench.N_GOALS * bench.N_FORCES * len(bench.HALVES)
 
     # ---- phase 4: times ---------------------------------------------------
     state, params = bench_lanes(cfg, 2, torch.float32, dev)
@@ -711,25 +1140,15 @@ def main() -> int:
     say(f"phase 4 per iteration B=4096 f32 [{card}]: kernel {ms_kernel:.3f} "
         f"ms (repeat {ms_kernel2:.3f} ms), plain PyTorch {ms_plain:.3f} ms")
 
-    batch.solve_scenario_grid(  # warm-up
-        cfg, *bench.bench_seeds(1000), bench.HALVES, device=dev)
-    lat, iters = [], []
-    for seed in range(1001, 1006):
-        g, f = bench.bench_seeds(seed)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        r = batch.solve_scenario_grid(cfg, g, f, bench.HALVES, device=dev)
-        torch.cuda.synchronize()
-        lat.append(time.perf_counter() - t0)
-        iters.append(r.iters.double().mean().item())
-    lat_ms = 1e3 * np.asarray(lat)
+    lat_ms, iters = grid_times(cfg, dev)
     say(f"phase 4 grid solve B={B} f32 [{card}]: {lat_ms.mean():.2f} ms/call "
         f"(min {lat_ms.min():.2f}, max {lat_ms.max():.2f}), "
-        f"{B / lat_ms.mean() * 1e3:.1f} solves/s, mean iters "
-        f"{np.mean(iters):.3f}")
+        f"{B / lat_ms.mean() * 1e3:.1f} solves/s, mean iters {iters:.3f}")
 
     slice2 = run_slice2(dev, card)
+    slice3 = run_slice3(dev, card, (lat_ms.mean(), iters))
 
+    say(f"chip_smoke total {time.perf_counter() - t_start:.1f} s")
     # max_abs_err: f32 kernel vs plain from the initial state, the check
     # held elementwise (the mid-solve one is printed in phase 2)
     print(json.dumps({"kernels": [{
@@ -737,7 +1156,7 @@ def main() -> int:
         "replaces": KERNEL_REPLACES, "launches": launches,
         "max_abs_err": errs[torch.float32], "ms": ms_kernel,
         "plain_ms": ms_plain,
-    }, *slice2]}))
+    }, *slice2, *slice3]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

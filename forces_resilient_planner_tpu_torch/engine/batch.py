@@ -17,8 +17,8 @@ from forces_resilient_planner_tpu_torch.config import PlannerConfig
 from forces_resilient_planner_tpu_torch.solver import ipm_lanes, nlp
 from forces_resilient_planner_tpu_torch.solver.ipm import SolveResult
 from forces_resilient_planner_tpu_torch.solver.problems import (
-    LQR_WARM_START_TODO,
     hover_warm_start,
+    lqr_warm_start_batch,
 )
 
 
@@ -79,9 +79,9 @@ def _expand_scenarios_device(
     """Cartesian scenario expansion on the tensors' device: only the
     scenario seeds (a few KB) come from the host; the per-scenario NLP
     parameters (corridor rows, references, warm starts) are materialized
-    where they are solved.  Fields are broadcast views (batch-leading)."""
-    if cfg.solver.warm_start != "hover":
-        raise NotImplementedError(LQR_WARM_START_TODO)
+    where they are solved.  Fields are broadcast views (batch-leading).
+    The warm start is cfg.solver.warm_start: "lqr" the LQR rollout
+    (problems.lqr_warm_start_batch), otherwise the hover seed."""
     mcfg = cfg.model
     N, nh = mcfg.N, mcfg.nh
     dtype, device = goals.dtype, goals.device
@@ -112,7 +112,13 @@ def _expand_scenarios_device(
     b_one[:, 1:6:2] = -(centers - ch)
     b = b_one[:, None, :].expand(B, N, nh)
 
-    Z0 = hover_warm_start(x0, mcfg)[None].expand(B, N, nlp.NZ)
+    if cfg.solver.warm_start == "lqr":
+        Z0 = lqr_warm_start_batch(
+            x0[None].expand(B, 9), ref_pos, ref_yaw, f, mcfg,
+            torch.as_tensor(cfg.K_matrix(), dtype=dtype, device=device),
+        )
+    else:
+        Z0 = hover_warm_start(x0, mcfg)[None].expand(B, N, nlp.NZ)
     params = nlp.NLPParams(
         xinit=x0[None].expand(B, 9),
         ref_pos=ref_pos, ref_yaw=ref_yaw, f_ext=f,

@@ -1,8 +1,9 @@
 """Build and load the hand-written CUDA kernels of ops/csrc/.
 
 nvcc compiles each source of ops/csrc/ (ipm_iteration.cu, tube_stage.cu,
-corridor.cu; all include common.cuh) for sm_90a into its own shared
-library with a plain C interface, loaded with ctypes.  A library is built
+corridor.cu, lqr.cu; all include common.cuh, and ipm_iteration.cu and
+lqr.cu riccati.cuh) for sm_90a into its own shared library with a plain C
+interface, loaded with ctypes.  A library is built
 at first use into ops/csrc/build/ (git-ignored) and rebuilt whenever its
 source, a header or the flags change (the file name carries their hash).
 `build()` starts one nvcc per source, all at once.  Without nvcc the build
@@ -20,7 +21,7 @@ from pathlib import Path
 from typing import Callable, NamedTuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("ipm_iteration.cu", "tube_stage.cu", "corridor.cu")
+SOURCES = ("ipm_iteration.cu", "tube_stage.cu", "corridor.cu", "lqr.cu")
 BUILD_DIR = CSRC / "build"
 NVCC_FALLBACK = "/usr/local/cuda/bin/nvcc"
 # no --use_fast_math: the NaN guards need IEEE division and isfinite;
@@ -30,6 +31,11 @@ NVCC_FLAGS = (
     "--expt-relaxed-constexpr", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
+# lqr.cu contracts no multiply-add into an FMA: K4 and K5 then round op for
+# op as their plain PyTorch versions do and match them bit for bit on the
+# card, where the Riccati sweep of a late interior-point iteration turns a
+# last-bit difference into a relative one of 1e-9 and more
+SOURCE_FLAGS = {"lqr.cu": ("-fmad=false",)}
 
 
 class Built(NamedTuple):
@@ -55,6 +61,10 @@ def find_nvcc() -> str:
     )
 
 
+def _flags(source: str) -> tuple[str, ...]:
+    return NVCC_FLAGS + SOURCE_FLAGS.get(source, ())
+
+
 def _paths(source: str):
     src = CSRC / source
     if source not in SOURCES or not src.is_file():
@@ -62,7 +72,7 @@ def _paths(source: str):
     h = hashlib.sha256(src.read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.name.encode() + header.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(_flags(source)).encode())
     stem = f"{src.stem}_{h.hexdigest()[:16]}"
     return src, BUILD_DIR / f"{stem}.so", BUILD_DIR / f"{stem}.log"
 
@@ -80,7 +90,7 @@ def build(*sources: str) -> dict[str, Built]:
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
             proc = subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                [nvcc, *_flags(source), "-o", str(tmp), str(src)],
                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
             )
         jobs.append((source, so, log, tmp, proc))

@@ -34,15 +34,11 @@
 // lane per iteration) is latency-bound with almost no memory-level
 // parallelism.  Raising occupancy (several lanes' stacks in shared memory,
 // more warps per SM) and keeping P in registers are later work.
-#include "common.cuh"
+#include "riccati.cuh"
 
 namespace frp {
 
 constexpr int NZ = 17;   // stage variables [u(4), u_prev(4), x(9)]
-constexpr int NXB = 13;  // Riccati augmented state [x(9), u_prev(4)]
-constexpr int NU = 4;
-constexpr int NX = 9;
-constexpr int NH = 30;   // corridor rows per stage
 constexpr int NIN = 64;  // inequality rows: 17 lb + 17 ub + 30 corridor
 constexpr int THREADS = 32;
 
@@ -55,67 +51,9 @@ struct IterConsts {
   int mu_gate;
 };
 
-// ---- lane-minor views ------------------------------------------------------
-// A tensor (d0, d1, ..., B) viewed from one lane: element k of the
-// flattened non-lane index sits at p[k * B].
-template <typename P>
-struct Lane {
-  P* p;
-  size_t B;
-  __device__ __forceinline__ P& operator[](size_t k) const { return p[k * B]; }
-};
-
-template <typename T, typename P>
-__device__ __forceinline__ void ld(const Lane<P>& v, size_t off, T* dst,
-                                   int n) {
-  for (int k = 0; k < n; ++k) dst[k] = v[off + k];
-}
-template <typename T>
-__device__ __forceinline__ void st(const Lane<T>& v, size_t off,
-                                   const T* src, int n) {
-  for (int k = 0; k < n; ++k) v[off + k] = src[k];
-}
-
-// packed Cholesky factors (l00 l10 l20 l30 l11 l21 l31 l22 l32 l33) of a
-// 4x4 SPD matrix (row-major)
-template <typename T>
-__device__ void chol4(const T* A, T* f) {
-  const T eps = T(1e-30);
-  T l00 = t_sqrt(nmax(A[0], eps));
-  T l10 = A[4] / l00;
-  T l20 = A[8] / l00;
-  T l30 = A[12] / l00;
-  T l11 = t_sqrt(nmax(A[5] - l10 * l10, eps));
-  T l21 = (A[9] - l20 * l10) / l11;
-  T l31 = (A[13] - l30 * l10) / l11;
-  T l22 = t_sqrt(nmax(A[10] - l20 * l20 - l21 * l21, eps));
-  T l32 = (A[14] - l30 * l20 - l31 * l21) / l22;
-  T l33 = t_sqrt(nmax(A[15] - l30 * l30 - l31 * l31 - l32 * l32, eps));
-  f[0] = l00; f[1] = l10; f[2] = l20; f[3] = l30; f[4] = l11;
-  f[5] = l21; f[6] = l31; f[7] = l22; f[8] = l32; f[9] = l33;
-}
-
-// X (4 x K) = (L L^T)^{-1} Bm (4 x K); X may alias Bm
-template <int K, typename T>
-__device__ void chol4_solve(const T* f, const T* Bm, T* X) {
-  const T l00 = f[0], l10 = f[1], l20 = f[2], l30 = f[3], l11 = f[4];
-  const T l21 = f[5], l31 = f[6], l22 = f[7], l32 = f[8], l33 = f[9];
-  for (int k = 0; k < K; ++k) {
-    T b0 = Bm[k], b1 = Bm[K + k], b2 = Bm[2 * K + k], b3 = Bm[3 * K + k];
-    T y0 = b0 / l00;
-    T y1 = (b1 - l10 * y0) / l11;
-    T y2 = (b2 - l20 * y0 - l21 * y1) / l22;
-    T y3 = (b3 - l30 * y0 - l31 * y1 - l32 * y2) / l33;
-    T x3 = y3 / l33;
-    T x2 = (y2 - l32 * x3) / l22;
-    T x1 = (y1 - l21 * x2 - l31 * x3) / l11;
-    T x0 = (y0 - l10 * x1 - l20 * x2 - l30 * x3) / l00;
-    X[k] = x0; X[K + k] = x1; X[2 * K + k] = x2; X[3 * K + k] = x3;
-  }
-}
-
 // ---- dynamics (dynamics/quadrotor.py; ipm_pallas.py:100-215) -------------
-// (rot_blocks and cont_jac are in common.cuh)
+// (rot_blocks and cont_jac are in common.cuh; the lane views, chol4,
+// assemble_stage and aug_dyn, shared with lqr.cu, in riccati.cuh)
 // continuous dynamics xdot (9) (nonlinear_dynamics.m:20-40)
 template <typename T>
 __device__ void xdot(const T* x, const T* u, const T* f, const T* R,
@@ -162,51 +100,6 @@ __device__ __noinline__ void dyn_stage(const T* x, const T* u, const T* f,
       Ax[k] = (i == j ? T(1) : T(0)) + hdt * (J1[k] + J2[k] + dt * JJ[k]);
     }
   for (int k = 0; k < 36; ++k) Bx[k] = hdt * (B1[k] + B2[k] + dt * JB[k]);
-}
-
-// barrier-weighted stage QP blocks Q (13x13), R (4x4), S (4x13)
-// (ipm_lanes._assemble_qp_blocks, stage i)
-template <typename T>
-__device__ __noinline__ void assemble_stage(
-    const T* sig, const T* Ai, T wwp, T win, T wrt, T wvl, T wup,
-    const IterConsts<T>& c, T* Q, T* R, T* S) {
-  for (int k = 0; k < NXB * NXB; ++k) Q[k] = T(0);
-  for (int k = 0; k < NU * NU; ++k) R[k] = T(0);
-  for (int k = 0; k < NU * NXB; ++k) S[k] = T(0);
-  for (int k = 0; k < NU; ++k) {
-    T r = T(2) * wrt + (sig[k] + sig[17 + k]) + c.reg;
-    if (k < 3) r += T(2) * win / c.rmax2;
-    R[k * NU + k] = r;
-    T up = T(2) * wrt + (sig[4 + k] + sig[21 + k]) + c.reg;
-    if (k < 3) up += T(2) * wup;
-    Q[(9 + k) * NXB + 9 + k] = up;
-    S[k * NXB + 9 + k] = -T(2) * wrt;
-  }
-  for (int k = 0; k < NX; ++k) {
-    T xd = (sig[8 + k] + sig[25 + k]) + c.reg;
-    if (k < 3) xd += T(2) * wwp;
-    else if (k < 6) xd += T(2) * wvl;
-    else if (k == 8) xd += T(24) * wwp;
-    Q[k * NXB + k] = xd;
-  }
-  // corridor 3x3 position block: sum_k A_kj sc_k A_kl
-  for (int j = 0; j < 3; ++j)
-    for (int l = 0; l < 3; ++l) {
-      T acc = (Ai[j] * sig[34]) * Ai[l];
-      for (int k = 1; k < NH; ++k) acc += (Ai[3 * k + j] * sig[34 + k]) * Ai[3 * k + l];
-      Q[j * NXB + l] += acc;
-    }
-}
-
-// augmented dynamics Abar = [[Ax, 0], [0, 0]] (13x13), Bbar = [[Bx], [I4]]
-template <typename T>
-__device__ void aug_dyn(const T* Ax, const T* Bx, T* Abar, T* Bbar) {
-  for (int r = 0; r < NXB; ++r) {
-    for (int col = 0; col < NXB; ++col)
-      Abar[r * NXB + col] = (r < NX && col < NX) ? Ax[r * NX + col] : T(0);
-    for (int k = 0; k < NU; ++k)
-      Bbar[r * NU + k] = r < NX ? Bx[r * NU + k] : (r - NX == k ? T(1) : T(0));
-  }
 }
 
 template <typename T>
@@ -440,7 +333,7 @@ __global__ void __launch_bounds__(THREADS) ipm_iteration_kernel(
     T fR[10], RiS[NU * NXB], StR[NXB * NXB];
     ld(sig_s, size_t(i) * NIN, sg, NIN);
     ld(A, size_t(i) * NH * 3, Ai, NH * 3);
-    assemble_stage(sg, Ai, wwp[i], win[i], wrt[i], wvl[i], wup[i], cst, Q, R, S);
+    assemble_stage<NH>(sg, Ai, wwp[i], win[i], wrt[i], wvl[i], wup[i], cst, Q, R, S);
     chol4(R, fR);
     chol4_solve<NXB>(fR, S, RiS);
     mtm<NXB, NU, NXB>(S, RiS, StR);
@@ -455,7 +348,7 @@ __global__ void __launch_bounds__(THREADS) ipm_iteration_kernel(
     T AtP[NXB * NXB], BtP[NU * NXB], tmp[NXB * NXB], fh[10], Kg[NU * NXB];
     ld(sig_s, size_t(i) * NIN, sg, NIN);
     ld(A, size_t(i) * NH * 3, Ai, NH * 3);
-    assemble_stage(sg, Ai, wwp[i], win[i], wrt[i], wvl[i], wup[i], cst, Q, R, S);
+    assemble_stage<NH>(sg, Ai, wwp[i], win[i], wrt[i], wvl[i], wup[i], cst, Q, R, S);
     ld(Ax_s, size_t(i) * 81, Ax, 81);
     ld(Bx_s, size_t(i) * 36, Bx, 36);
     aug_dyn(Ax, Bx, Abar, Bbar);

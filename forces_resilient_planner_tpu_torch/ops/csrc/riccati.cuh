@@ -1,0 +1,130 @@
+// Device code shared by the whole-iteration kernel (ipm_iteration.cu, K1)
+// and the Riccati kernels (lqr.cu, K4 and K5): lane-minor views, the packed
+// 4x4 Cholesky factor and solve, the barrier-weighted stage QP assembly and
+// the augmented dynamics of the 13-wide Riccati state [x(9), u_prev(4)].
+#pragma once
+
+#include "common.cuh"
+
+namespace frp {
+
+constexpr int NXB = 13;  // Riccati augmented state [x(9), u_prev(4)]
+constexpr int NU = 4;
+constexpr int NX = 9;
+constexpr int NH = 30;   // corridor rows per stage (K1's layout; K4's maximum)
+
+// ---- lane-minor views ------------------------------------------------------
+// A tensor (d0, d1, ..., B) viewed from one lane: element k of the
+// flattened non-lane index sits at p[k * B].
+template <typename P>
+struct Lane {
+  P* p;
+  size_t B;
+  __device__ __forceinline__ P& operator[](size_t k) const { return p[k * B]; }
+};
+
+template <typename T, typename P>
+__device__ __forceinline__ void ld(const Lane<P>& v, size_t off, T* dst,
+                                   int n) {
+  for (int k = 0; k < n; ++k) dst[k] = v[off + k];
+}
+template <typename T>
+__device__ __forceinline__ void st(const Lane<T>& v, size_t off,
+                                   const T* src, int n) {
+  for (int k = 0; k < n; ++k) v[off + k] = src[k];
+}
+
+// packed Cholesky factors (l00 l10 l20 l30 l11 l21 l31 l22 l32 l33) of a
+// 4x4 SPD matrix (row-major)
+template <typename T>
+__device__ void chol4(const T* A, T* f) {
+  const T eps = T(1e-30);
+  T l00 = t_sqrt(nmax(A[0], eps));
+  T l10 = A[4] / l00;
+  T l20 = A[8] / l00;
+  T l30 = A[12] / l00;
+  T l11 = t_sqrt(nmax(A[5] - l10 * l10, eps));
+  T l21 = (A[9] - l20 * l10) / l11;
+  T l31 = (A[13] - l30 * l10) / l11;
+  T l22 = t_sqrt(nmax(A[10] - l20 * l20 - l21 * l21, eps));
+  T l32 = (A[14] - l30 * l20 - l31 * l21) / l22;
+  T l33 = t_sqrt(nmax(A[15] - l30 * l30 - l31 * l31 - l32 * l32, eps));
+  f[0] = l00; f[1] = l10; f[2] = l20; f[3] = l30; f[4] = l11;
+  f[5] = l21; f[6] = l31; f[7] = l22; f[8] = l32; f[9] = l33;
+}
+
+// X (4 x K) = (L L^T)^{-1} Bm (4 x K); X may alias Bm
+template <int K, typename T>
+__device__ void chol4_solve(const T* f, const T* Bm, T* X) {
+  const T l00 = f[0], l10 = f[1], l20 = f[2], l30 = f[3], l11 = f[4];
+  const T l21 = f[5], l31 = f[6], l22 = f[7], l32 = f[8], l33 = f[9];
+  for (int k = 0; k < K; ++k) {
+    T b0 = Bm[k], b1 = Bm[K + k], b2 = Bm[2 * K + k], b3 = Bm[3 * K + k];
+    T y0 = b0 / l00;
+    T y1 = (b1 - l10 * y0) / l11;
+    T y2 = (b2 - l20 * y0 - l21 * y1) / l22;
+    T y3 = (b3 - l30 * y0 - l31 * y1 - l32 * y2) / l33;
+    T x3 = y3 / l33;
+    T x2 = (y2 - l32 * x3) / l22;
+    T x1 = (y1 - l21 * x2 - l31 * x3) / l11;
+    T x0 = (y0 - l10 * x1 - l20 * x2 - l30 * x3) / l00;
+    X[k] = x0; X[K + k] = x1; X[2 * K + k] = x2; X[3 * K + k] = x3;
+  }
+}
+
+// barrier-weighted stage QP blocks Q (13x13), R (4x4), S (4x13)
+// (ipm_lanes._assemble_qp_blocks, stage i).  sig holds the stage's 34 + nh
+// inequality sigmas (17 lb, 17 ub, nh corridor rows), Ai its nh corridor
+// rows (3 values each); c supplies reg and rmax2.  ROWS > 0 fixes
+// nh = ROWS at compile time (K1: NH); ROWS = 0 reads nh >= 1 from c.nh (K4).
+template <int ROWS, typename T, typename C>
+__device__ __noinline__ void assemble_stage(
+    const T* sig, const T* Ai, T wwp, T win, T wrt, T wvl, T wup,
+    const C& c, T* Q, T* R, T* S) {
+  int nh;
+  if constexpr (ROWS > 0) nh = ROWS;
+  else nh = c.nh;
+  for (int k = 0; k < NXB * NXB; ++k) Q[k] = T(0);
+  for (int k = 0; k < NU * NU; ++k) R[k] = T(0);
+  for (int k = 0; k < NU * NXB; ++k) S[k] = T(0);
+  for (int k = 0; k < NU; ++k) {
+    T r = T(2) * wrt + (sig[k] + sig[17 + k]) + c.reg;
+    if (k < 3) r += T(2) * win / c.rmax2;
+    R[k * NU + k] = r;
+    T up = T(2) * wrt + (sig[4 + k] + sig[21 + k]) + c.reg;
+    if (k < 3) up += T(2) * wup;
+    Q[(9 + k) * NXB + 9 + k] = up;
+    S[k * NXB + 9 + k] = -T(2) * wrt;
+  }
+  for (int k = 0; k < NX; ++k) {
+    T xd = (sig[8 + k] + sig[25 + k]) + c.reg;
+    if (k < 3) xd += T(2) * wwp;
+    else if (k < 6) xd += T(2) * wvl;
+    else if (k == 8) xd += T(24) * wwp;
+    Q[k * NXB + k] = xd;
+  }
+  // corridor 3x3 position block: sum_k A_kj sc_k A_kl.  K1 sums each of the
+  // nine entries on its own; K4 sums l >= j and mirrors, in the plain
+  // version's order (ops/lqr_kernel.py::_assemble_qp_blocks), so that with
+  // lqr.cu's -fmad=false it matches that version bit for bit.
+  for (int j = 0; j < 3; ++j)
+    for (int l = ROWS > 0 ? 0 : j; l < 3; ++l) {
+      T acc = (Ai[j] * sig[34]) * Ai[l];
+      for (int k = 1; k < nh; ++k) acc += (Ai[3 * k + j] * sig[34 + k]) * Ai[3 * k + l];
+      Q[j * NXB + l] += acc;
+      if (ROWS == 0 && l != j) Q[l * NXB + j] += acc;
+    }
+}
+
+// augmented dynamics Abar = [[Ax, 0], [0, 0]] (13x13), Bbar = [[Bx], [I4]]
+template <typename T>
+__device__ void aug_dyn(const T* Ax, const T* Bx, T* Abar, T* Bbar) {
+  for (int r = 0; r < NXB; ++r) {
+    for (int col = 0; col < NXB; ++col)
+      Abar[r * NXB + col] = (r < NX && col < NX) ? Ax[r * NX + col] : T(0);
+    for (int k = 0; k < NU; ++k)
+      Bbar[r * NU + k] = r < NX ? Bx[r * NU + k] : (r - NX == k ? T(1) : T(0));
+  }
+}
+
+}  // namespace frp

@@ -93,13 +93,14 @@ def ipm_iteration_reference(
     A, b, f_ext, xinit, max_iters_lane, mcfg: ModelConfig, scfg: SolverConfig,
 ):
     """Plain PyTorch version of the kernel: one monotone step of
-    ipm_lanes.lane_step, with the lane state packed as the kernel packs
-    it (scal (4, B) = [mu, it, done, err] in the working dtype)."""
+    ipm_lanes.lane_step (its Riccati sweeps plain too, on any device), with
+    the lane state packed as the kernel packs it (scal (4, B) =
+    [mu, it, done, err] in the working dtype)."""
     _check_monotone(scfg)
     params = nlp.NLPParams(xinit, ref_pos, ref_yaw, f_ext, A, b, weights)
     st = (Z, lam, s, mu_d, scal[0], scal[1], scal[2] > 0.5, scal[3])
     Zn, lamn, sn, mudn, mu, it, done, err = ipm_lanes.lane_step(
-        st, params, mcfg, scfg, max_iters_lane
+        st, params, mcfg, scfg, max_iters_lane, plain=True
     )
     return Zn, lamn, sn, mudn, torch.stack([mu, it, done.to(Z.dtype), err])
 

@@ -1,0 +1,302 @@
+"""Riccati factor and backsolve of the IPM's KKT system: CUDA kernels and
+their plain PyTorch versions.
+
+Counterpart of forces_resilient_planner_tpu/ops/lqr_pallas.py.  The
+kernels of csrc/lqr.cu replace its four Pallas TPU kernels:
+
+  K4a lqr_factor_fused_lanes     _lqr_factor_fused_kernel (lqr_pallas.py:269)
+  K4b lqr_backsolve_fused_lanes  _lqr_solve_fused_kernel  (lqr_pallas.py:316)
+  K5a lqr_factor_lanes           _lqr_factor_kernel       (lqr_pallas.py:100)
+  K5b lqr_backsolve_lanes        _lqr_solve_kernel        (lqr_pallas.py:132)
+
+K4 assembles the barrier-weighted stage QP blocks and the augmented
+dynamics [[Ax, 0], [0, 0]], [[Bx], [I4]] itself, from the stage weight
+tables, the barrier sigmas, the corridor rows and the RK2 Jacobians:
+solver/ipm_lanes.py::lane_step runs it where K1 is off (the Mehrotra
+predictor-corrector, corridors of other than 30 rows).  K5 reads
+pre-assembled Q/R/S/A/B blocks; solve_lqr_lanes joins K5a and K5b behind
+solver/riccati.py::solve_lqr_batched.
+
+Route by device: a CPU tensor runs the plain version beside each wrapper
+(`*_reference`).  Any other tensor is checked (shapes, float32 or float64,
+one device, contiguity, 1 <= nh <= 30) and then launches the kernel if it
+lies on CUDA, or raises.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from forces_resilient_planner_tpu_torch.ops import _build
+from forces_resilient_planner_tpu_torch.solver import nlp, riccati
+from forces_resilient_planner_tpu_torch.solver.riccati import (
+    LQRFactor,
+    LQRSolution,
+)
+from forces_resilient_planner_tpu_torch.utils.lanes import sum_dim
+
+SOURCE = "lqr.cu"
+NX, NXB, NU = 9, 13, 4
+NH = 30  # the most corridor rows per stage K4 takes
+
+# kernel launches per kernel, over all calls in this process
+LAUNCHES = dict.fromkeys(
+    ("lqr_factor_fused", "lqr_backsolve_fused", "lqr_factor", "lqr_backsolve"),
+    0,
+)
+
+# backsolve scratch (each lane's p and k stacks) per (device, dtype, N, B)
+_scratch: dict = {}
+
+_SUFFIX = {torch.float32: ("f32", ctypes.c_float),
+           torch.float64: ("f64", ctypes.c_double)}
+
+
+def _bind(lib):
+    lib.lqr_backsolve_scratch_per_lane.argtypes = [ctypes.c_int]
+    lib.lqr_backsolve_scratch_per_lane.restype = ctypes.c_size_t
+    i, p = ctypes.c_int, ctypes.c_void_p
+    for suffix, ctype in _SUFFIX.values():
+        # (N, B[, nh, reg, rmax2]), inputs, outputs[, scratch], stream
+        argtypes = {
+            "lqr_factor_fused": [i, i, i, ctype, ctype] + [p] * 9 + [p] * 5,
+            "lqr_factor": [i, i] + [p] * 5 + [p] * 5,
+            "lqr_backsolve_fused": [i, i] + [p] * 11 + [p] * 4 + [p],
+            "lqr_backsolve": [i, i] + [p] * 11 + [p] * 4 + [p],
+        }
+        for name, args in argtypes.items():
+            fn = getattr(lib, f"{name}_{suffix}")
+            fn.argtypes = args + [p]
+            fn.restype = ctypes.c_int
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch versions
+# ---------------------------------------------------------------------------
+
+def _assemble_qp_blocks(w: nlp.StageWeights, A, sigma, reg, rmax2):
+    """Partitioned barrier-weighted stage Hessian, assembled directly:
+    W = H + J_g^T diag(sigma) J_g + reg*I, in the Riccati partition
+    xbar = [x(9), u_prev(4)], u(4):  Wp (N,13,13,B), Rp (N,4,4,B),
+    Sp (N,4,13,B)."""
+    N, _, _, B = A.shape
+    dtype, device = A.dtype, A.device
+    sig_u = sigma[:, 0:4] + sigma[:, 17:21]
+    sig_up = sigma[:, 4:8] + sigma[:, 21:25]
+    sig_x = sigma[:, 8:17] + sigma[:, 25:34]
+    sc = sigma[:, 34:]
+    w_rate = w.w_rate[:, None]
+
+    r_diag = 2.0 * w_rate + sig_u + reg
+    r_diag[:, 0:3] += 2.0 * w.w_input[:, None] / rmax2
+    Rp = torch.zeros((N, NU, NU, B), dtype=dtype, device=device)
+    for k in range(NU):
+        Rp[:, k, k] = r_diag[:, k]
+
+    x_diag = sig_x + reg
+    x_diag[:, 0:3] += 2.0 * w.w_wp[:, None]
+    x_diag[:, 3:6] += 2.0 * w.w_vel[:, None]
+    x_diag[:, 8] += 24.0 * w.w_wp
+    up_diag = 2.0 * w_rate + sig_up + reg
+    up_diag[:, 0:3] += 2.0 * w.w_uprev0[:, None]
+    Wp = torch.zeros((N, NXB, NXB, B), dtype=dtype, device=device)
+    for k in range(9):
+        Wp[:, k, k] = x_diag[:, k]
+    for k in range(NU):
+        Wp[:, 9 + k, 9 + k] = up_diag[:, k]
+    # corridor 3x3 position block: sum_k A_kj sc_k A_kl
+    for j in range(3):
+        Asj = A[:, :, j] * sc
+        for l in range(j, 3):
+            blk = sum_dim(Asj * A[:, :, l], 1)
+            Wp[:, j, l] += blk
+            if l != j:
+                Wp[:, l, j] += blk
+
+    Sp = torch.zeros((N, NU, NXB, B), dtype=dtype, device=device)
+    for k in range(NU):
+        Sp[:, k, 9 + k] = -2.0 * w_rate[:, 0]
+    return Wp, Rp, Sp
+
+
+def _aug_dynamics(Ax, Bx):
+    """Abar = [[Ax, 0], [0, 0]] (N-1, 13, 13, B) and Bbar = [[Bx], [I4]]
+    (N-1, 13, 4, B): the dynamics of the Riccati state [x, u_prev]."""
+    N1, _, _, B = Ax.shape
+    dtype, device = Ax.dtype, Ax.device
+    Abar = torch.zeros((N1, NXB, NXB, B), dtype=dtype, device=device)
+    Abar[:, :9, :9] = Ax
+    Bbar = torch.zeros((N1, NXB, NU, B), dtype=dtype, device=device)
+    Bbar[:, :9, :] = Bx
+    for k in range(NU):
+        Bbar[:, 9 + k, k] = 1.0
+    return Abar, Bbar
+
+
+def lqr_factor_fused_reference(w_wp, w_input, w_rate, w_vel, w_uprev0, sigma,
+                               Acor, Ax, Bx, reg: float,
+                               rmax2: float) -> LQRFactor:
+    """Plain PyTorch version of K4a: the stage QP blocks and the augmented
+    dynamics assembled in full, then riccati.lqr_factor_ll."""
+    w = nlp.StageWeights(w_wp, w_input, w_rate, w_vel, w_uprev0)
+    Wp, Rp, Sp = _assemble_qp_blocks(w, Acor, sigma, reg, rmax2)
+    Abar, Bbar = _aug_dynamics(Ax, Bx)
+    return riccati.lqr_factor_ll(Wp, Rp, Sp, Abar, Bbar)
+
+
+def lqr_backsolve_fused_reference(fac: LQRFactor, Ax, Bx, c, qx, qu,
+                                  dx0) -> LQRSolution:
+    """Plain PyTorch version of K4b: riccati.lqr_solve_ll against the
+    augmented dynamics."""
+    Abar, Bbar = _aug_dynamics(Ax, Bx)
+    return riccati.lqr_solve_ll(fac, Abar, Bbar, c, qx, qu, dx0)
+
+
+# plain PyTorch versions of K5a and K5b
+lqr_factor_reference = riccati.lqr_factor_ll
+lqr_backsolve_reference = riccati.lqr_solve_ll
+
+
+# ---------------------------------------------------------------------------
+# the kernels' wrappers
+# ---------------------------------------------------------------------------
+
+def _device_route(named):
+    """The checks of the device route, then the library.  named: (name,
+    tensor, expected shape) triples; the first tensor sets dtype and
+    device."""
+    dtype, device = named[0][1].dtype, named[0][1].device
+    if dtype not in _SUFFIX:
+        raise ValueError(f"the CUDA kernels take float32 or float64, not {dtype}")
+    for name, t, shape in named:
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
+        if t.dtype != dtype or t.device != device:
+            raise ValueError(
+                f"{name}: {t.dtype} on {t.device}, expected {dtype} on {device}"
+            )
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: the kernels take contiguous tensors only")
+    if device.type != "cuda":
+        raise ValueError(f"no route for tensors on {device}")
+    return _build.load(SOURCE, _bind)
+
+
+def _horizon(N: int, B: int):
+    if N < 2 or B < 1:
+        raise ValueError(f"need N >= 2 stages and B >= 1 lanes, got {N}, {B}")
+
+
+def _launch(lib, name: str, like: torch.Tensor, *args):
+    with torch.cuda.device(like.device):
+        stream = torch.cuda.current_stream(like.device).cuda_stream
+        rc = getattr(lib, f"{name}_{_SUFFIX[like.dtype][0]}")(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+    LAUNCHES[name] += 1
+
+
+def _factor_shapes(N: int, B: int):
+    return ((N, NXB, NXB, B), (N - 1, NU, NXB, B), (N - 1, 10, B), (NU, NXB, B),
+            (10, B))
+
+
+def _factor(name, like, N, B, lib, *head):
+    """Launch a factor kernel: head = its arguments before the outputs."""
+    fac = LQRFactor(*(like.new_empty(s) for s in _factor_shapes(N, B)))
+    _launch(lib, name, like, *head, *(t.data_ptr() for t in fac))
+    return fac
+
+
+def _backsolve(name, fac, d0, d1, c, qx, qu, dx0, d_shapes):
+    """Launch a backsolve kernel against fac with the dynamics (d0, d1)."""
+    N, B = qx.shape[0], qx.shape[-1]
+    _horizon(N, B)
+    named = [("qx", qx, (N, NXB, B))]
+    named += [(f"fac.{f}", t, s) for f, t, s in
+              zip(LQRFactor._fields, fac, _factor_shapes(N, B))]
+    named += [("dynamics[0]", d0, d_shapes[0]), ("dynamics[1]", d1, d_shapes[1]),
+              ("c", c, (N - 1, NXB, B)), ("qu", qu, (N, NU, B)),
+              ("dx0", dx0, (NX, B))]
+    lib = _device_route(named)
+    key = (qx.device, qx.dtype, N, B)
+    if key not in _scratch:
+        _scratch[key] = qx.new_empty(lib.lqr_backsolve_scratch_per_lane(N) * B)
+    sol = LQRSolution(qx.new_empty((N, NXB, B)), qx.new_empty((N, NU, B)),
+                      qx.new_empty((N, NXB, B)), qx.new_empty((NU, B)))
+    _launch(lib, name, qx, N, B,
+            *(t.data_ptr() for t in (*fac, d0, d1, c, qx, qu, dx0, *sol)),
+            _scratch[key].data_ptr())
+    return sol
+
+
+def lqr_factor_fused_lanes(w_wp, w_input, w_rate, w_vel, w_uprev0, sigma,
+                           Acor, Ax, Bx, reg: float,
+                           rmax2: float) -> LQRFactor:
+    """K4a: assemble every stage's QP blocks from the weight tables w_*
+    (N, B), the barrier sigmas (N, 34 + nh, B) and the corridor rows Acor
+    (N, nh, 3, B), the augmented dynamics from Ax (N-1, 9, 9, B) and Bx
+    (N-1, 9, 4, B), and factor: LQRFactor (P, K, cRh, RiS, cRt)."""
+    if sigma.device.type == "cpu":
+        return lqr_factor_fused_reference(w_wp, w_input, w_rate, w_vel,
+                                          w_uprev0, sigma, Acor, Ax, Bx, reg,
+                                          rmax2)
+    N, B = w_wp.shape
+    nh = Acor.shape[1]
+    _horizon(N, B)
+    if not 1 <= nh <= NH:
+        raise ValueError(
+            f"the kernel takes 1 to {NH} corridor rows per stage, got {nh} "
+            "(nor can the JAX K4 take more: lqr_pallas.py:216-217)"
+        )
+    weights = (w_wp, w_input, w_rate, w_vel, w_uprev0)
+    named = [(f, t, (N, B)) for f, t in zip(nlp.StageWeights._fields, weights)]
+    named += [("sigma", sigma, (N, 34 + nh, B)), ("Acor", Acor, (N, nh, 3, B)),
+              ("Ax", Ax, (N - 1, NX, NX, B)), ("Bx", Bx, (N - 1, NX, NU, B))]
+    lib = _device_route(named)
+    return _factor("lqr_factor_fused", sigma, N, B, lib, N, B, nh, reg, rmax2,
+                   *(t.data_ptr() for _, t, _ in named))
+
+
+def lqr_backsolve_fused_lanes(fac: LQRFactor, Ax, Bx, c, qx, qu,
+                              dx0) -> LQRSolution:
+    """K4b: backsolve one right-hand side (c (N-1, 13, B), qx (N, 13, B),
+    qu (N, 4, B), dx0 (9, B)) against a K4a factor, with the augmented
+    dynamics rebuilt from Ax, Bx: LQRSolution (dxb, du, nu, dtheta)."""
+    if qx.device.type == "cpu":
+        return lqr_backsolve_fused_reference(fac, Ax, Bx, c, qx, qu, dx0)
+    N, B = qx.shape[0], qx.shape[-1]
+    return _backsolve("lqr_backsolve_fused", fac, Ax, Bx, c, qx, qu, dx0,
+                      ((N - 1, NX, NX, B), (N - 1, NX, NU, B)))
+
+
+def lqr_factor_lanes(Q, R, S, A, B) -> LQRFactor:
+    """K5a: factor pre-assembled blocks Q (N, 13, 13, Bn), R (N, 4, 4, Bn),
+    S (N, 4, 13, Bn), A (N-1, 13, 13, Bn), B (N-1, 13, 4, Bn)."""
+    if Q.device.type == "cpu":
+        return lqr_factor_reference(Q, R, S, A, B)
+    N, Bn = Q.shape[0], Q.shape[-1]
+    _horizon(N, Bn)
+    named = [("Q", Q, (N, NXB, NXB, Bn)), ("R", R, (N, NU, NU, Bn)),
+             ("S", S, (N, NU, NXB, Bn)), ("A", A, (N - 1, NXB, NXB, Bn)),
+             ("B", B, (N - 1, NXB, NU, Bn))]
+    lib = _device_route(named)
+    return _factor("lqr_factor", Q, N, Bn, lib, N, Bn,
+                   *(t.data_ptr() for _, t, _ in named))
+
+
+def lqr_backsolve_lanes(fac: LQRFactor, A, B, c, qx, qu, dx0) -> LQRSolution:
+    """K5b: backsolve one right-hand side against a K5a factor with the
+    pre-assembled dynamics A, B."""
+    if qx.device.type == "cpu":
+        return lqr_backsolve_reference(fac, A, B, c, qx, qu, dx0)
+    N, Bn = qx.shape[0], qx.shape[-1]
+    return _backsolve("lqr_backsolve", fac, A, B, c, qx, qu, dx0,
+                      ((N - 1, NXB, NXB, Bn), (N - 1, NXB, NU, Bn)))
+
+
+def solve_lqr_lanes(Q, R, S, qx, qu, A, B, c, dx0) -> LQRSolution:
+    """Lane-major LQR solve: K5a, then K5b (lqr_pallas.py:556)."""
+    fac = lqr_factor_lanes(Q, R, S, A, B)
+    return lqr_backsolve_lanes(fac, A, B, c, qx, qu, dx0)

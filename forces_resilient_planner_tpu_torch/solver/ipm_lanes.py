@@ -6,11 +6,15 @@ KKT solve, with the scenario batch on the MINOR (lane) axis of every
 array: Z is (N, 17, B), corridor rows (N, nh, 3, B), multipliers (N, 64, B).
 
 The JAX while_loop becomes a host loop that reads one flag from the device
-per iteration.  Every monotone iteration goes through
-ops/ipm_kernel.py::ipm_iteration_fused, which runs the hand-written CUDA
-kernel on a CUDA tensor and the plain PyTorch step (`lane_step` below) on
-a CPU tensor.  The Mehrotra predictor-corrector branch and corridors with
-other than 30 rows run `lane_step` directly, on CPU tensors only.
+per iteration.  Every monotone iteration with 30 corridor rows goes
+through ops/ipm_kernel.py::ipm_iteration_fused, which runs the hand-written
+CUDA kernel K1 on a CUDA tensor and the plain PyTorch step (`lane_step`
+below) on a CPU tensor.  The Mehrotra predictor-corrector branch and
+corridors with other than 30 rows run `lane_step` itself, whose Riccati
+factor and backsolves go through ops/lqr_kernel.py: the CUDA kernels K4a
+(one factor) and K4b (one backsolve per right-hand side: two per
+predictor-corrector iteration, one per monotone one) on a CUDA tensor,
+their plain versions on a CPU tensor.
 
 Reference anchors are those of the JAX solver (FORCES PDIP_NLP,
 mpc_generator_normal.m:51-79; exit codes FORCESNLPsolver_normal.h:110-139).
@@ -24,9 +28,10 @@ from forces_resilient_planner_tpu_torch.dynamics.quadrotor import (
     rk2_jacobians_analytic,
     rk2_step,
 )
-from forces_resilient_planner_tpu_torch.solver import nlp, riccati
+from forces_resilient_planner_tpu_torch.ops import lqr_kernel
+from forces_resilient_planner_tpu_torch.solver import nlp
 from forces_resilient_planner_tpu_torch.solver.ipm import SolveResult
-from forces_resilient_planner_tpu_torch.solver.nlp import NLPParams, NXB, NU
+from forces_resilient_planner_tpu_torch.solver.nlp import NLPParams, NXB
 from forces_resilient_planner_tpu_torch.utils.lanes import lane_sum, sum_dim
 
 # host-loop iterations stepped by _run_lanes, over all calls (a run's
@@ -130,51 +135,6 @@ def _xbar_cat(vx, vt):
     return torch.cat([vx, vt], dim=1)
 
 
-def _assemble_qp_blocks(w: nlp.StageWeights, A, sigma, reg, rmax2):
-    """Partitioned barrier-weighted stage Hessian, assembled directly:
-    W = H + J_g^T diag(sigma) J_g + reg*I, in the Riccati partition
-    xbar = [x(9), u_prev(4)], u(4):  Wp (N,13,13,B), Rp (N,4,4,B),
-    Sp (N,4,13,B)."""
-    N, _, _, B = A.shape
-    dtype, device = A.dtype, A.device
-    sig_u = sigma[:, 0:4] + sigma[:, 17:21]
-    sig_up = sigma[:, 4:8] + sigma[:, 21:25]
-    sig_x = sigma[:, 8:17] + sigma[:, 25:34]
-    sc = sigma[:, 34:]
-    w_rate = w.w_rate[:, None]
-
-    r_diag = 2.0 * w_rate + sig_u + reg
-    r_diag[:, 0:3] += 2.0 * w.w_input[:, None] / rmax2
-    Rp = torch.zeros((N, NU, NU, B), dtype=dtype, device=device)
-    for k in range(NU):
-        Rp[:, k, k] = r_diag[:, k]
-
-    x_diag = sig_x + reg
-    x_diag[:, 0:3] += 2.0 * w.w_wp[:, None]
-    x_diag[:, 3:6] += 2.0 * w.w_vel[:, None]
-    x_diag[:, 8] += 24.0 * w.w_wp
-    up_diag = 2.0 * w_rate + sig_up + reg
-    up_diag[:, 0:3] += 2.0 * w.w_uprev0[:, None]
-    Wp = torch.zeros((N, NXB, NXB, B), dtype=dtype, device=device)
-    for k in range(9):
-        Wp[:, k, k] = x_diag[:, k]
-    for k in range(NU):
-        Wp[:, 9 + k, 9 + k] = up_diag[:, k]
-    # corridor 3x3 position block: sum_k A_kj sc_k A_kl
-    for j in range(3):
-        Asj = A[:, :, j] * sc
-        for l in range(j, 3):
-            blk = sum_dim(Asj * A[:, :, l], 1)
-            Wp[:, j, l] += blk
-            if l != j:
-                Wp[:, l, j] += blk
-
-    Sp = torch.zeros((N, NU, NXB, B), dtype=dtype, device=device)
-    for k in range(NU):
-        Sp[:, k, 9 + k] = -2.0 * w_rate[:, 0]
-    return Wp, Rp, Sp
-
-
 def _dyn_pieces(Z, f_ext_bl, mcfg: ModelConfig):
     """Equality residuals + RK2 Jacobians for a lane-major Z (N, 17, B),
     via the batch-leading dynamics module.  f_ext_bl: (B, 3)."""
@@ -245,17 +205,20 @@ def _state_to_result(st, params: NLPParams, mcfg: ModelConfig,
 
 
 def lane_step(st, params: NLPParams, mcfg: ModelConfig, scfg: SolverConfig,
-              max_iters):
-    """One IPM iteration over every lane, plain PyTorch.
+              max_iters, plain: bool = False):
+    """One IPM iteration over every lane.
 
     st = (Z, lam, s, mu_d, mu, it, done, err); max_iters is an int or a
     (B,) tensor.  Lanes whose own loop condition (~done & it < max_iters)
     is false keep their state: exact vmap(while_loop) semantics, lane by
     lane.  Monotone barrier schedule, or Mehrotra predictor-corrector when
-    scfg.predictor_corrector.
+    scfg.predictor_corrector.  The Riccati factor and backsolves go
+    through the K4 wrappers of ops/lqr_kernel.py (kernels on a CUDA
+    tensor); plain=True takes their plain versions on any device, so the
+    whole step is plain PyTorch (K1's plain version).
     """
     Z, lam, s, mu_d, mu, it, done, err = st
-    N, _, B = Z.shape
+    N = Z.shape[0]
     dtype, device = Z.dtype, Z.device
     w = params.weights
     Acor, bcor = params.corridor_A, params.corridor_b
@@ -296,22 +259,22 @@ def lane_step(st, params: NLPParams, mcfg: ModelConfig, scfg: SolverConfig,
     lane_done = err0 <= tol
 
     # ---- one Riccati factorization, replayed for every RHS ----
+    if plain:
+        factor = lqr_kernel.lqr_factor_fused_reference
+        backsolve = lqr_kernel.lqr_backsolve_fused_reference
+    else:
+        factor = lqr_kernel.lqr_factor_fused_lanes
+        backsolve = lqr_kernel.lqr_backsolve_fused_lanes
     sigma = mu_d / s
     dx0 = params.xinit - Z[0, 8:17]
-    Wp, Rp, Sp = _assemble_qp_blocks(w, Acor, sigma, scfg.reg, rmax2)
-    Abar = torch.zeros((N - 1, NXB, NXB, B), dtype=dtype, device=device)
-    Abar[:, :9, :9] = Ax
-    Bbar = torch.zeros((N - 1, NXB, NU, B), dtype=dtype, device=device)
-    Bbar[:, :9, :] = Bx
-    for k in range(NU):
-        Bbar[:, 9 + k, k] = 1.0
-    fac = riccati.lqr_factor_ll(Wp, Rp, Sp, Abar, Bbar)
+    Ax, Bx = Ax.contiguous(), Bx.contiguous()
+    fac = factor(*w, sigma, Acor, Ax, Bx, scfg.reg, rmax2)
 
     def direction(w_vec):
         q = grad_f + _ineq_jac_T_times(Acor, w_vec)
-        sol = riccati.lqr_solve_ll(
-            fac, Abar, Bbar, c, _xbar_cat(q[:, 8:17], q[:, 4:8]), q[:, 0:4],
-            dx0,
+        sol = backsolve(
+            fac, Ax, Bx, c, _xbar_cat(q[:, 8:17], q[:, 4:8]),
+            q[:, 0:4].contiguous(), dx0,
         )
         dZ = torch.cat([sol.du, sol.dxb[:, 9:], sol.dxb[:, :9]], dim=1)
         ds = -r_g - _ineq_jac_times(Acor, dZ)
@@ -434,14 +397,6 @@ def _run_lanes(st0, params: NLPParams, mcfg: ModelConfig, scfg: SolverConfig,
                 Zn, lamn, sn, mudn, scaln[0],
                 scaln[1].to(torch.int32), scaln[2] > 0.5, scaln[3],
             )
-    elif Z.is_cuda:
-        raise NotImplementedError(
-            "the predictor-corrector branch and corridors with other than "
-            f"{ipm_kernel.NH} rows need the fused Riccati kernels K4 "
-            "(ops/lqr_pallas.py::lqr_factor_fused_lanes / "
-            "lqr_backsolve_fused_lanes), not ported yet (ROADMAP.md, "
-            "Queue 2, K4); they run on CPU tensors only"
-        )
     else:
         def step(st):
             return lane_step(st, params, mcfg, scfg, max_iters)

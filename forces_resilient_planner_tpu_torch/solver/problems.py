@@ -1,8 +1,7 @@
 """Problem-construction helpers: warm starts and simple corridor setups.
 
-Port of forces_resilient_planner_tpu/solver/problems.py (hover warm start,
-box corridor, hover-to-goal problem).  The LQR-rollout warm start is not
-ported yet (ROADMAP.md, Queue 1, item "lqr_warm_start_batch").
+Port of forces_resilient_planner_tpu/solver/problems.py (hover and
+LQR-rollout warm starts, box corridor, hover-to-goal problem).
 """
 from __future__ import annotations
 
@@ -10,14 +9,10 @@ import numpy as np
 import torch
 
 from forces_resilient_planner_tpu_torch.config import ModelConfig, WeightConfig
+from forces_resilient_planner_tpu_torch.dynamics.quadrotor import rk2_step
 from forces_resilient_planner_tpu_torch.solver.nlp import (
     NLPParams,
     make_stage_weights,
-)
-
-LQR_WARM_START_TODO = (
-    "warm_start='lqr' is not ported yet (ROADMAP.md, Queue 1, item "
-    "'lqr_warm_start_batch'); use the default warm_start='hover'"
 )
 
 
@@ -37,6 +32,51 @@ def hover_warm_start(
         state.to(dtype),
     ])
     return row[None, :].repeat(cfg.N, 1)
+
+
+def lqr_warm_start_batch(
+    x0: torch.Tensor,         # (B, 9)
+    ref_pos: torch.Tensor,    # (B, N, 3)
+    ref_yaw: torch.Tensor,    # (B, N)
+    f_ext: torch.Tensor,      # (B, 3)
+    mcfg: ModelConfig,
+    K: torch.Tensor,          # (4, 9) fixed feedback gain (nmpc_solver.cpp:28-31)
+) -> torch.Tensor:
+    """LQR-rollout warm start (B, N, 17) (JAX problems.py:41-96): close the
+    loop with the reference's fixed gain, u = u_hover + K (x - x_ref) on
+    the tracking error saturated per component, clipped inside the input
+    bounds, and roll the NLP's own RK2 dynamics toward the reference, so
+    the warm start's equality residuals are ~0.  The reference warm-starts
+    FORCES from its previous solution (forces_normal.cpp:74-97); a one-shot
+    sweep has none, and this rollout is its analog."""
+    dtype, device = x0.dtype, x0.device
+
+    def vec(values):
+        return torch.tensor(values, dtype=dtype, device=device)
+
+    rmax = mcfg.max_rate
+    margin = 1e-2
+    u_lo = vec([-rmax, -rmax, -rmax, mcfg.min_thrust]) + margin
+    u_hi = vec([rmax, rmax, rmax, mcfg.max_thrust]) - margin
+    u_hover = vec([0.0, 0.0, 0.0, mcfg.hover_thrust])
+    Kt = K.to(dtype).T                                       # (9, 4)
+    # the error is saturated BEFORE the gain so the inputs stay interior:
+    # an input-saturated warm start parks IPM slacks at their bounds
+    e_sat = vec([0.7, 0.7, 0.7, 1.5, 1.5, 1.5, 0.3, 0.3, 0.3])
+
+    x, us, xs = x0, [], []
+    for k in range(ref_pos.shape[1]):
+        xref = torch.zeros_like(x)
+        xref[:, 0:3] = ref_pos[:, k]
+        xref[:, 8] = ref_yaw[:, k]
+        err = torch.clamp(x - xref, -e_sat, e_sat)
+        u = torch.clamp(u_hover[None] + err @ Kt, u_lo, u_hi)
+        us.append(u)
+        xs.append(x)
+        x = rk2_step(x, u, f_ext, mcfg)
+    u = torch.stack(us, dim=1)                               # (B, N, 4)
+    uprev = torch.cat([u[:, 0:1], u[:, :-1]], dim=1)
+    return torch.cat([u, uprev, torch.stack(xs, dim=1)], dim=-1)
 
 
 def box_corridor(

@@ -1,7 +1,7 @@
 """Block-tridiagonal KKT solve via Riccati recursion, lane-major (torch).
 
 Port of the lane-major half of forces_resilient_planner_tpu/solver/
-riccati.py (lines 217-366).  Solves the equality-constrained QP of one
+riccati.py (lines 217-387).  Solves the equality-constrained QP of one
 interior-point iteration
 
     min  sum_i 1/2 [dxb_i; du_i]^T [Q_i S_i^T; S_i R_i] [dxb_i; du_i]
@@ -11,6 +11,9 @@ interior-point iteration
 
 with the scenario batch on the trailing (lane) axis: (..., i, j, B).
 The stage loops are Python loops over N (the JAX code's lax.scan).
+lqr_factor_ll / lqr_solve_ll are the plain versions of the Riccati
+kernels of ops/lqr_kernel.py; solve_lqr_batched is the public batched
+solve through those kernels.
 """
 from __future__ import annotations
 
@@ -162,3 +165,28 @@ def lqr_solve_ll(fac: LQRFactor, A, B, c, qx, qu, dx0) -> LQRSolution:
     return LQRSolution(
         dxb=dxb_all, du=torch.stack(dus), nu=nu_all, dtheta=dtheta
     )
+
+
+def solve_lqr_batched(Q, R, S, qx, qu, A, B, c, dx0) -> LQRSolution:
+    """Lane-major batched LQR solve (factor + one backsolve), the public
+    batched entry (JAX riccati.py:357-365).  Through ops/lqr_kernel.py:
+    the CUDA kernels K5a and K5b on a CUDA tensor, lqr_factor_ll and
+    lqr_solve_ll on a CPU tensor.
+
+    Shapes (trailing batch Bn):
+      Q (N,13,13,Bn)  R (N,4,4,Bn)  S (N,4,13,Bn)  qx (N,13,Bn)  qu (N,4,Bn)
+      A (N-1,13,13,Bn)  B (N-1,13,4,Bn)  c (N-1,13,Bn)  dx0 (9,Bn)
+    """
+    # imported here: ops/lqr_kernel.py imports this module
+    from forces_resilient_planner_tpu_torch.ops import lqr_kernel
+
+    return lqr_kernel.solve_lqr_lanes(Q, R, S, qx, qu, A, B, c, dx0)
+
+
+def solve_lqr_batch(Q, R, S, qx, qu, A, B, c, dx0) -> LQRSolution:
+    """solve_lqr_batched with the batch LEADING on every input and output
+    (Q (Bn, N, 13, 13), ..., dx0 (Bn, 9) -> dxb (Bn, N, 13), ...): the
+    axis moves of the JAX package's custom_vmap rule (riccati.py:368-387)."""
+    args = (Q, R, S, qx, qu, A, B, c, dx0)
+    sol = solve_lqr_batched(*(a.movedim(0, -1).contiguous() for a in args))
+    return LQRSolution(*(f.movedim(-1, 0) for f in sol))

@@ -2,7 +2,8 @@
 a 32-lane grid of the bench workload (bench.py seeds, the bench tier
 schedule): at f64 identical exit codes and iterations and Z within 1e-8;
 f32 port controls within 1e-3 of the f64 JAX solve (the control-parity
-bar); scenario construction exact; sweep statistics."""
+bar); scenario construction exact; the LQR-rollout warm start within
+1e-12; sweep statistics."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -12,6 +13,7 @@ import bench
 from forces_resilient_planner_tpu.engine import batch as jb
 from forces_resilient_planner_tpu_torch.engine import batch as tb
 from forces_resilient_planner_tpu_torch.solver import nlp as tn
+from forces_resilient_planner_tpu_torch.solver import problems as tps
 
 CFG = bench.bench_config()
 
@@ -82,6 +84,45 @@ def test_make_scenarios_matches_jax_and_device_expansion():
         assert torch.equal(a, b)
     for a, b in zip(dev.params.weights, got.params.weights):
         assert torch.equal(a, b)
+
+
+def test_lqr_warm_start_matches_jax():
+    from forces_resilient_planner_tpu.solver import problems as jp
+
+    rng = np.random.default_rng(4)
+    B, N = 12, CFG.model.N
+    x0 = rng.normal(0.0, 0.5, (B, 9)) + np.array([0, 0, 1.2, 0, 0, 0, 0, 0, 0])
+    ref_pos = rng.uniform(-2.0, 2.0, (B, N, 3))
+    ref_yaw = rng.uniform(-np.pi, np.pi, (B, N))
+    f = rng.uniform(-1.0, 1.0, (B, 3))
+    K = CFG.K_matrix()
+    want = jp.lqr_warm_start_batch(*map(jnp.asarray, (x0, ref_pos, ref_yaw,
+                                                      f)), CFG.model,
+                                   jnp.asarray(K))
+    got = tps.lqr_warm_start_batch(
+        *(torch.as_tensor(a, dtype=torch.float64)
+          for a in (x0, ref_pos, ref_yaw, f)),
+        CFG.model, torch.as_tensor(K, dtype=torch.float64))
+    assert got.shape == (B, N, 17)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-12,
+                               atol=1e-12)
+
+
+def test_lqr_warm_start_grid_matches_jax():
+    """warm_start="lqr": the expanded grid's Z0 is the JAX grid's."""
+    import dataclasses
+
+    cfg = dataclasses.replace(
+        CFG, solver=dataclasses.replace(CFG.solver, warm_start="lqr"))
+    g, f = _seeds(3)
+    ref = jb.make_scenarios(cfg, g, f, bench.HALVES, dtype=jnp.float64)
+    got = tb.make_scenarios(cfg, g, f, bench.HALVES, dtype=torch.float64,
+                            device="cpu")
+    hover = tb.make_scenarios(CFG, g, f, bench.HALVES, dtype=torch.float64,
+                              device="cpu")
+    assert not torch.equal(got.Z0, hover.Z0)
+    np.testing.assert_allclose(got.Z0.numpy(), np.asarray(ref.Z0),
+                               rtol=1e-12, atol=1e-12)
 
 
 def test_sweep_stats_match_jax(jax_ref, port64):

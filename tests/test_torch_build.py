@@ -28,6 +28,11 @@ def _run(code_or_args, timeout=300):
     "forces_resilient_planner_tpu_torch.tube.lyapunov",
     "forces_resilient_planner_tpu_torch.ops.tube_kernel",
     "forces_resilient_planner_tpu_torch.ops.corridor_kernel",
+    "forces_resilient_planner_tpu_torch.ops.ipm_kernel",
+    "forces_resilient_planner_tpu_torch.ops.lqr_kernel",
+    "forces_resilient_planner_tpu_torch.solver.ipm_lanes",
+    "forces_resilient_planner_tpu_torch.solver.riccati",
+    "forces_resilient_planner_tpu_torch.solver.problems",
 ])
 def test_port_imports_no_jax(module):
     proc = _run(
@@ -70,6 +75,26 @@ def test_every_kernel_source_is_built_and_hashed_with_the_header():
     assert '#include "common.cuh"' in src.read_text()
     with pytest.raises(ValueError, match="unknown kernel source"):
         _build._paths("missing.cu")
+
+
+def test_riccati_kernels_share_the_header_and_rebuild_with_it(monkeypatch,
+                                                              tmp_path):
+    """lqr.cu (K4, K5) and ipm_iteration.cu (K1) include riccati.cuh; a
+    library's name changes with any header's contents."""
+    assert "lqr.cu" in _build.SOURCES
+    for source in ("lqr.cu", "ipm_iteration.cu"):
+        assert '#include "riccati.cuh"' in (_build.CSRC / source).read_text()
+    assert '#include "common.cuh"' in (_build.CSRC / "riccati.cuh").read_text()
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for p in list(_build.CSRC.glob("*.cu")) + list(_build.CSRC.glob("*.cuh")):
+        (csrc / p.name).write_bytes(p.read_bytes())
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    before = _build._paths("lqr.cu")[1].name
+    assert before == _build._paths("lqr.cu")[1].name
+    (csrc / "riccati.cuh").write_text(
+        (csrc / "riccati.cuh").read_text() + "\n// edited\n")
+    assert _build._paths("lqr.cu")[1].name != before
 
 
 def test_chip_smoke_alone_fails(tmp_path):

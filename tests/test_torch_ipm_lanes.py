@@ -2,7 +2,8 @@
 lane-major solver at f64 on the 24-lane set of tests/test_ipm_lanes.py:
 identical exit codes and iteration counts, Z within 1e-8.  Mirrors that
 file's NaN isolation, tiered / multitier bit-exactness (including overflow
-into the full-batch safety net) and predictor-corrector parity."""
+into the full-batch safety net) and predictor-corrector parity, and counts
+the Riccati wrapper calls (ops/lqr_kernel.py, K4) of one iteration."""
 import dataclasses
 
 import jax
@@ -14,6 +15,7 @@ import torch
 from forces_resilient_planner_tpu.config import DEFAULT_CONFIG as C
 from forces_resilient_planner_tpu.engine import batch as jb
 from forces_resilient_planner_tpu.solver import ipm_lanes as jl
+from forces_resilient_planner_tpu_torch.ops import lqr_kernel
 from forces_resilient_planner_tpu_torch.solver import ipm_lanes as tl
 from forces_resilient_planner_tpu_torch.solver import nlp as tn
 
@@ -166,3 +168,33 @@ def test_predictor_corrector_parity(problem):
     ref = _jax_solver(scfg)(sc.Z0, sc.params)
     assert (np.asarray(ref.exit_code) == 1).all()
     _same(tl.solve_batch_lanes(Z0, params, C.model, scfg), ref)
+
+
+@pytest.mark.parametrize("pc,backsolves", [(True, 2), (False, 1)])
+def test_lane_step_riccati_calls(problem, monkeypatch, pc, backsolves):
+    """One lane_step factors once (the K4a wrapper) and backsolves once per
+    right-hand side (K4b): twice for the predictor-corrector, once for the
+    monotone step; plain=True calls neither wrapper."""
+    _, params, Z0 = problem
+    scfg = dataclasses.replace(C.solver, predictor_corrector=pc)
+    calls = {"factor": 0, "backsolve": 0}
+
+    def counted(name, fn):
+        def wrapper(*args):
+            calls[name] += 1
+            return fn(*args)
+        return wrapper
+
+    monkeypatch.setattr(lqr_kernel, "lqr_factor_fused_lanes",
+                        counted("factor", lqr_kernel.lqr_factor_fused_lanes))
+    monkeypatch.setattr(lqr_kernel, "lqr_backsolve_fused_lanes",
+                        counted("backsolve",
+                                lqr_kernel.lqr_backsolve_fused_lanes))
+    lp = tl.lanes_params(params)
+    st = tl._init_state(Z0.movedim(0, -1).contiguous(), lp, C.model, scfg)
+    out = tl.lane_step(st, lp, C.model, scfg, 60)
+    assert calls == {"factor": 1, "backsolve": backsolves}
+    plain = tl.lane_step(st, lp, C.model, scfg, 60, plain=True)
+    assert calls == {"factor": 1, "backsolve": backsolves}
+    for a, b in zip(out, plain):
+        assert torch.equal(a, b)

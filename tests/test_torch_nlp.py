@@ -85,9 +85,18 @@ def test_nlp_params_from_numpy_carries_jax_problem_exactly():
 
 
 def test_lqr_warm_start_not_ported_raises():
+    """warm_start="lqr" is ported and no longer raises: every scenario
+    starts from problems.lqr_warm_start_batch on its own start state,
+    references and force (the JAX grid's Z0: tests/test_torch_batch.py)."""
     cfg = dataclasses.replace(
         C, solver=dataclasses.replace(C.solver, warm_start="lqr")
     )
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tb.make_scenarios(cfg, np.ones((1, 3)), np.zeros((1, 3)),
-                          np.ones((1, 3)), device="cpu")
+    sc = tb.make_scenarios(cfg, np.ones((1, 3)), np.zeros((1, 3)),
+                           np.ones((1, 3)), dtype=F64, device="cpu")
+    p = sc.params
+    want = tp.lqr_warm_start_batch(
+        p.xinit, p.ref_pos, p.ref_yaw, p.f_ext, C.model,
+        torch.as_tensor(cfg.K_matrix(), dtype=F64))
+    assert torch.equal(sc.Z0, want)
+    hover = tp.hover_warm_start(p.xinit[0], C.model)
+    assert not torch.equal(sc.Z0[0], hover)
