@@ -26,21 +26,26 @@ printed):
   0. device: needs torch.cuda; prints the card's name and power limit
   1. build: compiles the four kernel sources with nvcc, all at once;
      prints build seconds and the ptxas register / spill report of each
+     entry function, and K1's lanes and shared memory per CTA
   2. K1 vs its plain PyTorch version on the card at B = 4096, one
      iteration from the initial state and one after 8 plain iterations:
      f64 |d| <= 1e-9 (1 + |ref|) with identical it/done; f32 from the
      initial state |d| <= 1e-3 (1 + |ref|) on the lanes whose done flag
      agrees; f32 in mid-solve the kernel's error against the f64 step from
      the same state within 1.25x the plain f32 step's (+1e-3); f32 done
-     flags agreeing on >= 99.9% of lanes
+     flags agreeing on >= 99.9% of lanes; K1 on a permutation of the
+     lanes and on the 256 lanes a tier would take, launched alone, bit for
+     bit equal to the same lanes of the full launch
   3. slice 1 main path at f32: solved fraction >= 0.999; K1 launches equal
      to the host-loop iterations stepped (> 0), no K4; the first 64 lanes
      re-solved by the plain path at f64 on the CPU within 1e-3 in u (at
      most one of the card's solved lanes missing); the grid solved through
      the plain versions on the card: solved fraction within 0.005, exit
      codes agreeing on >= 99.5% of lanes
-  4. K1 times: kernel and plain ms per iteration, grid-solve ms per call and
-     solves/s over 5 fresh seed sets, mean iterations
+  4. K1 times: ms per iteration (CUDA events) at B = 4096, 1024, 256 and
+     1, each beside its bound from bytes and operations and the share of
+     it; the plain version at 4096; grid-solve ms per call and solves/s
+     over 5 fresh seed sets, mean iterations
   5. K2 vs its plain version at L = B N = 81,920 stage lanes, on random
      tube-regime lanes and on the main path's own stage lanes: f64
      |d| <= 1e-10 (1 + |ref|); f32 max |d| Phi <= 2e-5, Mp <= 2e-6,
@@ -61,7 +66,7 @@ printed):
   8. slice 2 times: K2 and K3 ms per call against their plain versions;
      nmpc_step_batched ms per call and steps/s over 5 pre-staged fresh
      input sets of each workload; engine/pipeline.py::nmpc_step at B = 1,
-     p50 / p99 over 30 calls, in the __graft_entry__._small_cfg
+     p50 / p99 over 30 calls, in the engine/workloads.py::small_cfg
      configuration (reduced caps) and in DEFAULT_CONFIG
   9. K4 vs its plain version on the predictor-corrector grid's own calls
      (B = 4096, nh = 30), from the initial IPM state and after 8 plain
@@ -84,9 +89,13 @@ printed):
      predictor-corrector step's ms per call and steps/s; nmpc_step at B = 1
      in DEFAULT_CONFIG with the predictor-corrector, p50 / p99 over 30 calls
 
-The {"kernels"} line's max_abs_err is, for every kernel, the f32 kernel
-against its plain version on the main path's inputs at the main path's
-shape (K1: the grid's initial IPM state; K2: the step's stage lanes; K3:
+The {"kernels"} line's bound_ms is the larger of the bytes the kernel must
+move (inputs read once, outputs written once) over the H100's 3.35 TB/s
+and its operations over 67 TFLOP/s (f32, no tensor cores), computed from
+this run's inputs; library_ms is null for all seven kernels (no single
+PyTorch call computes any of them).  max_abs_err is, for every kernel, the
+f32 kernel against its plain version on the main path's inputs at the
+main path's shape (K1: the grid's initial IPM state; K2: the step's stage lanes; K3:
 the step's segments and clouds; K4: the predictor-corrector grid's initial
 calls; K5: the random blocks of phase 9).
 
@@ -107,13 +116,13 @@ from unittest import mock
 import numpy as np
 import torch
 
-import bench
 from forces_resilient_planner_tpu_torch.config import DEFAULT_CONFIG
 from forces_resilient_planner_tpu_torch.engine import (
     batch,
     pipeline,
     pipeline_batch,
     reference,
+    workloads,
 )
 from forces_resilient_planner_tpu_torch.ops import (
     _build,
@@ -124,6 +133,7 @@ from forces_resilient_planner_tpu_torch.ops import (
 )
 from forces_resilient_planner_tpu_torch.solver import ipm_lanes, nlp, riccati
 from forces_resilient_planner_tpu_torch.solver.problems import hover_warm_start
+from forces_resilient_planner_tpu_torch.tube import lyapunov
 
 CSRC = "forces_resilient_planner_tpu_torch/ops/csrc/"
 KERNEL_SOURCE = CSRC + "ipm_iteration.cu"
@@ -163,7 +173,7 @@ def card_line() -> str:
 
 def bench_lanes(cfg, seed, dtype, device):
     """The bench grid of `seed`, lane-major, with its initial IPM state."""
-    goals, forces = bench.bench_seeds(seed)
+    goals, forces = workloads.bench_seeds(seed)
 
     def t(a):
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
@@ -174,7 +184,7 @@ def bench_lanes(cfg, seed, dtype, device):
         cfg.weights, cfg.model.N, dtype=dtype, device=device
     )
     scen = batch._expand_scenarios_device(
-        cfg, t(x0), t(goals), t(forces), t(bench.HALVES), weights
+        cfg, t(x0), t(goals), t(forces), t(workloads.HALVES), weights
     )
     params = ipm_lanes.lanes_params(scen.params)
     Z0 = scen.Z0.movedim(0, -1).contiguous()
@@ -263,6 +273,84 @@ def cuda_ms(fn, reps):
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+# ---------------------------------------------------------------------------
+# bounds: the least time the card could take for a kernel's work
+# ---------------------------------------------------------------------------
+
+# NVIDIA H100 SXM published peaks: HBM3 bytes/s, and FLOP/s outside the
+# tensor cores (the kernels use none)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
+NXB, NU = 13, 4
+NTRI = NXB * (NXB + 1) // 2
+
+
+def tensor_bytes(*objs) -> int:
+    """Bytes of every tensor in objs (tuples and named tuples walked)."""
+    total = 0
+    for o in objs:
+        if torch.is_tensor(o):
+            total += o.numel() * o.element_size()
+        elif isinstance(o, (tuple, list)):
+            total += tensor_bytes(*o)
+    return total
+
+
+def bound(nbytes, flops, dtype=torch.float32):
+    """(bound_ms, bound_by): the larger of the bytes over HBM bandwidth
+    and the operations over the peak rate of their type."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[dtype]
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def riccati_factor_flops(N, nh=0):
+    """Per lane, multiply-add = 2: each gap stage's Abar^T P, Bbar^T P,
+    their products with Abar and Bbar, Sh^T K over P's upper triangle, and
+    with nh corridor rows the 3x3 corridor block of the stage QP."""
+    macs = (2 * NXB ** 3 + 2 * NU * NXB * NXB + NU * NU * NXB
+            + 2 * NU * NTRI + 9 * nh)
+    return 2 * (N - 1) * macs
+
+
+def riccati_solve_flops(N):
+    """Per lane: P c, Abar^T Pc, Bbar^T Pc, K^T quh (backsolve); K dx, Abar
+    dx, Bbar du (rollout); P dx (costates), per gap stage."""
+    macs = 3 * NXB * NXB + 2 * NU * NXB + NXB * NU + NU * NXB
+    return 2 * (N - 1) * macs
+
+
+def k1_flops(N):
+    """One K1 iteration per lane: the factor (with the corridor block) and
+    the solve, the Jacobian products Ax, Bx per gap stage; per stage the
+    corridor products of the stationarity and the RHS, J_eq^T lam, and ~12
+    operations for each of the 64 rows in the three row passes (ratios,
+    NaN guard, update)."""
+    dyn = 2 * (81 * 9 + 36 * 9)
+    stage = 2 * (2 * 3 * 30 + 13 * 9 + NXB * NXB) + 64 * 12 * 3
+    return (riccati_factor_flops(N, 30) + riccati_solve_flops(N)
+            + (N - 1) * dyn + N * stage)
+
+
+def tube_flops(Phi, dt, n_terms):
+    """K2 per call from this run's data: per lane 2 n_terms Horner and 3
+    n_terms series 9x9 products, 8 per doubling (s doublings, from the 1-norm
+    of Phi dt as the kernel takes them), and Bc K (multiply-add = 2)."""
+    norm1 = (Phi * dt).abs().sum(dim=-2).amax(dim=-1)
+    s = torch.ceil(torch.log2(torch.clamp(norm1 / 0.5, min=1.0)))
+    s = torch.nan_to_num(s, nan=0.0).clamp(0, 4)
+    products = 5 * n_terms * Phi.shape[0] + 8 * s.sum().item()
+    return 2 * 729 * products + 2 * 81 * 4 * Phi.shape[0]
+
+
+def corridor_flops(B, N, M):
+    """K3: the bounding-box filter of every stage's cloud (6 operations per
+    obstacle).  A lower bound: the shrink and peel rounds stop early on this
+    data and are not counted."""
+    return 6 * B * N * M
 
 
 # ---------------------------------------------------------------------------
@@ -494,9 +582,9 @@ def check_grid(dev, cfg, phase, solved_min=None):
     plain versions on the card: solved fraction within 0.005, exit codes
     agreeing on >= 99.5% of lanes.  Returns the launch counts (K1, K2, K3,
     K4a, K4b)."""
-    goals, forces = bench.bench_seeds(1)
+    goals, forces = workloads.bench_seeds(1)
     reset_counts()
-    res = batch.solve_scenario_grid(cfg, goals, forces, bench.HALVES,
+    res = batch.solve_scenario_grid(cfg, goals, forces, workloads.HALVES,
                                     dtype=torch.float32, device=dev)
     torch.cuda.synchronize()
     counts, steps = launch_counts(), ipm_lanes.STEPS
@@ -508,7 +596,7 @@ def check_grid(dev, cfg, phase, solved_min=None):
     ec = res.exit_code.cpu()
     acc = ec == 1
     B = ec.numel()
-    if B != bench.N_GOALS * bench.N_FORCES * len(bench.HALVES):
+    if B != workloads.N_GOALS * workloads.N_FORCES * len(workloads.HALVES):
         fail(f"grid has {B} lanes")
     if not torch.isfinite(res.Z).all():
         fail("non-finite Z")
@@ -519,7 +607,7 @@ def check_grid(dev, cfg, phase, solved_min=None):
     if solved_min is not None and solved < solved_min:
         fail(f"solved fraction {solved:.6f} < {solved_min}")
 
-    ref64 = batch.solve_scenario_grid(cfg, goals[:4], forces, bench.HALVES,
+    ref64 = batch.solve_scenario_grid(cfg, goals[:4], forces, workloads.HALVES,
                                       dtype=torch.float64, device="cpu")
     both = (ref64.exit_code == 1) & acc[:64]
     du = (res.Z[:64, :, 0:4].double().cpu() - ref64.Z[:, :, 0:4]).abs()
@@ -529,7 +617,7 @@ def check_grid(dev, cfg, phase, solved_min=None):
              f"{int(acc[:64].sum())}, max |du| {du_max:.3e} (bar 1e-3)")
 
     with plain_routes():
-        plain = batch.solve_scenario_grid(cfg, goals, forces, bench.HALVES,
+        plain = batch.solve_scenario_grid(cfg, goals, forces, workloads.HALVES,
                                           dtype=torch.float32, device=dev)
     torch.cuda.synchronize()
     if launch_counts() != counts:
@@ -707,16 +795,20 @@ def run_slice2(dev, card):
     ms3 = cuda_ms(lambda: corridor_kernel.decompose_stages_lanes(*cargs), 5)
     ms3p = cuda_ms(lambda: corridor_kernel.decompose_stages_reference(*cargs),
                    2)
+    Phi = tube_kernel.tube_stage_reference(*targs)[2]
+    b2 = bound(tensor_bytes(x, u, tube_kernel.tube_stage_reference(*targs)),
+               tube_flops(Phi, cfg.model.dt, lyapunov.taylor_n_terms(f32)))
+    b3 = bound(tensor_bytes(args3, corridor_kernel.decompose_stages_reference(
+        *cargs)), corridor_flops(B, N, STEP_M))
     say(f"phase 8 kernels f32 [{card}]: K2 {ms2:.3f} ms vs plain {ms2p:.3f} "
-        f"ms at L={B * N}; K3 {ms3:.3f} ms vs plain {ms3p:.3f} ms at B={B} "
-        f"N={N} M={STEP_M}")
+        f"ms at L={B * N}, bound {b2[0]:.4f} ms by {b2[1]}; K3 {ms3:.3f} ms "
+        f"vs plain {ms3p:.3f} ms at B={B} N={N} M={STEP_M}, bound "
+        f"{b3[0]:.4f} ms by {b3[1]}")
 
     for drift, label in ((False, ""), (True, ", every 4th robot drifted")):
         step_times(cfg, dev, drift, label, card, 8)
 
-    import __graft_entry__
-
-    small = __graft_entry__._small_cfg()
+    small = workloads.small_cfg()
     one_robot_latency(small, "small_cfg (reduced caps)",
                       small.corridor.max_obstacles, dev, card)
     one_robot_latency(cfg, "DEFAULT_CONFIG", STEP_M, dev, card)
@@ -724,10 +816,12 @@ def run_slice2(dev, card):
     return [
         {"name": "tube_stage", "route": "cuda", "source": CSRC + "tube_stage.cu",
          "replaces": "forces_resilient_planner_tpu/ops/tube_pallas.py:65",
-         "launches": l2, "max_abs_err": err2, "ms": ms2, "plain_ms": ms2p},
+         "launches": l2, "max_abs_err": err2, "ms": ms2, "plain_ms": ms2p,
+         "bound_ms": b2[0], "bound_by": b2[1], "library_ms": None},
         {"name": "corridor", "route": "cuda", "source": CSRC + "corridor.cu",
          "replaces": "forces_resilient_planner_tpu/ops/corridor_pallas.py:98",
-         "launches": l3, "max_abs_err": err3, "ms": ms3, "plain_ms": ms3p},
+         "launches": l3, "max_abs_err": err3, "ms": ms3, "plain_ms": ms3p,
+         "bound_ms": b3[0], "bound_by": b3[1], "library_ms": None},
     ]
 
 
@@ -969,14 +1063,14 @@ def check_k5(dev):
 def grid_times(cfg, dev):
     """solve_scenario_grid at f32 over 5 fresh bench seed sets after a
     warm-up: (ms per call, mean iterations)."""
-    batch.solve_scenario_grid(cfg, *bench.bench_seeds(1000), bench.HALVES,
+    batch.solve_scenario_grid(cfg, *workloads.bench_seeds(1000), workloads.HALVES,
                               device=dev)
     lat, iters = [], []
     for seed in range(1001, 1006):
-        g, f = bench.bench_seeds(seed)
+        g, f = workloads.bench_seeds(seed)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        r = batch.solve_scenario_grid(cfg, g, f, bench.HALVES, device=dev)
+        r = batch.solve_scenario_grid(cfg, g, f, workloads.HALVES, device=dev)
         torch.cuda.synchronize()
         lat.append(time.perf_counter() - t0)
         iters.append(r.iters.double().mean().item())
@@ -1008,7 +1102,7 @@ def step_times(cfg, dev, drift, label, card, phase):
 def run_slice3(dev, card, mono_grid):
     """Phases 9-11; mono_grid = phase 4's (ms per call, mean iterations).
     Returns the {"kernels"} entries of K4a, K4b, K5a and K5b."""
-    cfg_pc = with_pc(bench.bench_config())
+    cfg_pc = with_pc(workloads.bench_config())
     f32 = torch.float32
 
     # ---- phase 9: K4 and K5 vs plain --------------------------------------
@@ -1034,19 +1128,28 @@ def run_slice3(dev, card, mono_grid):
         "lqr_factor": (Q, R, S, A, B),
         "lqr_backsolve": (fac5, A, B, c, qx, qu, dx0),
     }
-    ms, plain_ms = {}, {}
+    flops = {
+        "lqr_factor_fused": riccati_factor_flops(LQR_N, fa[5].shape[1] - 34),
+        "lqr_backsolve_fused": riccati_solve_flops(LQR_N),
+        "lqr_factor": riccati_factor_flops(LQR_N),
+        "lqr_backsolve": riccati_solve_flops(LQR_N),
+    }
+    ms, plain_ms, bounds = {}, {}, {}
     for name, args in calls.items():
         kernel = getattr(lqr_kernel, name + "_lanes")
         plain = getattr(lqr_kernel, name + "_reference")
         ms[name] = cuda_ms(lambda: kernel(*args), 20)
         plain_ms[name] = cuda_ms(lambda: plain(*args), 3)
+        bounds[name] = bound(tensor_bytes(args, plain(*args)),
+                             LQR_B * flops[name])
     say(f"phase 11 kernels f32 B={LQR_B} N={LQR_N} [{card}]: " + "; ".join(
-        f"{LQR_KERNELS[n][0]} {ms[n]:.3f} ms vs plain {plain_ms[n]:.3f} ms"
+        f"{LQR_KERNELS[n][0]} {ms[n]:.3f} ms vs plain {plain_ms[n]:.3f} ms, "
+        f"bound {bounds[n][0]:.4f} ms by {bounds[n][1]}"
         for n in calls) + " (K4: the PC grid's initial-state calls, K5: the "
         "random blocks)")
     lat_ms, iters = grid_times(cfg_pc, dev)
     mono_ms, mono_iters = mono_grid
-    Bg = bench.N_GOALS * bench.N_FORCES * len(bench.HALVES)
+    Bg = workloads.N_GOALS * workloads.N_FORCES * len(workloads.HALVES)
     say(f"phase 11 PC grid solve B={Bg} f32 [{card}]: {lat_ms.mean():.2f} "
         f"ms/call (min {lat_ms.min():.2f}, max {lat_ms.max():.2f}), "
         f"{Bg / lat_ms.mean() * 1e3:.1f} solves/s, mean iters {iters:.3f}; "
@@ -1062,9 +1165,91 @@ def run_slice3(dev, card, mono_grid):
         {"name": name, "route": "cuda", "source": CSRC + "lqr.cu",
          "replaces": LQR_KERNELS[name][1], "launches": launches[name],
          "max_abs_err": errs[name], "ms": ms[name],
-         "plain_ms": plain_ms[name]}
+         "plain_ms": plain_ms[name], "bound_ms": bounds[name][0],
+         "bound_by": bounds[name][1], "library_ms": None}
         for name in LQR_KERNELS
     ]
+
+
+def lane_position_check(state, params, cfg, seed):
+    """K1 on a permutation of the lanes gives the permuted outputs bit for
+    bit, and the 256 lanes that the tier schedule would compact (the
+    unconverged first) launched alone equal the same lanes of the full
+    launch (utils/lanes.py: the tiered solve's bit-exactness)."""
+    B = state[0].shape[-1]
+    full = ipm_kernel.ipm_iteration_fused(*iter_args(state, params, cfg))
+    gen = torch.Generator().manual_seed(seed)
+    perm = torch.randperm(B, generator=gen).to(state[0].device)
+    tier = ipm_lanes._compact_order(state[4][2] > 0.5)[:256]
+    for label, idx in (("a permutation of the lanes", perm),
+                       ("the 256-lane tier alone", tier)):
+        sub = [a[..., idx].contiguous() for a in state]
+        sub_p = ipm_lanes._map_params(lambda a: a[..., idx].contiguous(),
+                                      params)
+        got = ipm_kernel.ipm_iteration_fused(*iter_args(sub, sub_p, cfg))
+        torch.cuda.synchronize()
+        for name, g, r in zip(("Z", "lam", "s", "mu_d", "scal"), got, full):
+            r = r[..., idx]
+            if not (torch.equal(g.isnan(), r.isnan())
+                    and torch.equal(g.nan_to_num(), r.nan_to_num())):
+                fail(f"K1 on {label}: {name} differs from the full launch")
+    return (f"bit-identical on a permutation of the {B} lanes and on "
+            f"{tier.numel()} tier lanes launched alone")
+
+
+def check_k1(cfg, dev):
+    """Phase 2: K1 against its plain version at B = 4096 from the grid's
+    initial state and after 8 plain iterations, f64 and f32, and the lane-
+    position check; returns {dtype: max |kernel - plain| from the initial
+    state}."""
+    errs = {}
+    for dtype, rel_tol, done_frac in ((torch.float64, 1e-9, 1.0),
+                                      (torch.float32, 1e-3, 0.999)):
+        state, params = bench_lanes(cfg, 1, dtype, dev)
+        r0 = compare_step(state, params, cfg, rel_tol, done_frac, False)
+        for _ in range(8):
+            state = list(ipm_kernel.ipm_iteration_reference(
+                *iter_args(state, params, cfg)))
+        r8 = compare_step(state, params, cfg, rel_tol, done_frac,
+                          dtype == torch.float32)
+        errs[dtype] = r0[1]
+        say(f"phase 2 kernel vs plain {str(dtype)[6:]} B={state[0].shape[-1]}:"
+            f" init max rel {r0[0]:.3e} abs {r0[1]:.3e} done-agree {r0[2]:.6f};"
+            f" after 8 plain iters max rel {r8[0]:.3e} abs {r8[1]:.3e}"
+            f" done-agree {r8[2]:.6f} (bound {rel_tol:g} (1+|ref|))")
+        say(f"phase 2 K1 lane position {str(dtype)[6:]}, after 8 plain "
+            f"iters: {lane_position_check(state, params, cfg, 8)}")
+    return errs
+
+
+def time_k1(cfg, dev, card):
+    """Phase 4, K1: ms per iteration at B = 4096, 1024, 256 and 1 (the
+    first lanes of the grid of seed 2 at its initial state, every lane
+    active) with CUDA events, each beside its bound; the plain version at
+    4096.  Returns (ms, plain ms, bound ms, bound by) at B = 4096."""
+    state, params = bench_lanes(cfg, 2, torch.float32, dev)
+    args = iter_args(state, params, cfg)
+    ms_plain = cuda_ms(lambda: ipm_kernel.ipm_iteration_reference(*args), 5)
+    k1_times = {}
+    for Bw in (4096, 1024, 256, 1):
+        sub = [a[..., :Bw].contiguous() for a in state]
+        sub_p = ipm_lanes._map_params(lambda a: a[..., :Bw].contiguous(),
+                                      params)
+        a = iter_args(sub, sub_p, cfg)
+        ms = cuda_ms(lambda: ipm_kernel.ipm_iteration_fused(*a), 20)
+        ms2 = cuda_ms(lambda: ipm_kernel.ipm_iteration_fused(*a), 20)
+        bms, by = bound(tensor_bytes(a[:13]) + tensor_bytes(a[:5]),
+                        Bw * k1_flops(cfg.model.N))
+        k1_times[Bw] = (min(ms, ms2), bms, by)
+        say(f"phase 4 K1 per iteration B={Bw} f32 [{card}]: {ms:.4f} ms "
+            f"(repeat {ms2:.4f} ms); bound {bms:.4f} ms by {by} "
+            f"({1e-6 * tensor_bytes(a[:13], a[:5]):.3f} MB, "
+            f"{1e-9 * Bw * k1_flops(cfg.model.N):.4f} GFLOP), "
+            f"{100 * bms / min(ms, ms2):.2f}% of the bound")
+    ms_kernel, bound_ms, bound_by = k1_times[4096]
+    say(f"phase 4 per iteration B=4096 f32 [{card}]: kernel {ms_kernel:.3f} "
+        f"ms, plain PyTorch {ms_plain:.3f} ms")
+    return ms_kernel, ms_plain, bound_ms, bound_by
 
 
 def device_phase():
@@ -1091,10 +1276,20 @@ def build_phase():
     t0 = time.perf_counter()
     for source, built in _build.build().items():
         ptxas = [ln.strip() for ln in built.ptxas_log.splitlines()
-                 if "registers" in ln or "spill" in ln]
+                 if "registers" in ln or "spill" in ln
+                 or "Compiling entry function" in ln]
         say(f"phase 1 build {source}: {built.seconds:.1f} s -> "
             f"{built.path.name}; " + " | ".join(ptxas))
     say(f"phase 1 build: all sources in {time.perf_counter() - t0:.1f} s")
+    N = workloads.bench_config().model.N
+    geo = []
+    for dtype in (torch.float32, torch.float64):
+        lanes, smem, stride = ipm_kernel.launch_geometry(dtype, N)
+        geo.append(f"{str(dtype)[6:]} {lanes} lanes x {smem // lanes} B = "
+                   f"{smem} B of shared memory per CTA, "
+                   f"{ipm_kernel.TEAM * lanes} threads")
+    say(f"phase 1 K1 ({KERNEL_SOURCE}) at N = {N}: " + "; ".join(geo)
+        + " (registers and spills: the ipm_iteration.cu line above)")
 
 
 def main() -> int:
@@ -1108,38 +1303,17 @@ def main() -> int:
     # ---- phase 1: build ---------------------------------------------------
     build_phase()
 
-    cfg = bench.bench_config()
+    cfg = workloads.bench_config()
 
     # ---- phase 2: kernel vs plain at B = 4096 -----------------------------
-    errs = {}
-    for dtype, rel_tol, done_frac in ((torch.float64, 1e-9, 1.0),
-                                      (torch.float32, 1e-3, 0.999)):
-        state, params = bench_lanes(cfg, 1, dtype, dev)
-        r0 = compare_step(state, params, cfg, rel_tol, done_frac, False)
-        for _ in range(8):
-            state = list(ipm_kernel.ipm_iteration_reference(
-                *iter_args(state, params, cfg)))
-        r8 = compare_step(state, params, cfg, rel_tol, done_frac,
-                          dtype == torch.float32)
-        errs[dtype] = r0[1]
-        say(f"phase 2 kernel vs plain {str(dtype)[6:]} B={state[0].shape[-1]}:"
-            f" init max rel {r0[0]:.3e} abs {r0[1]:.3e} done-agree {r0[2]:.6f};"
-            f" after 8 plain iters max rel {r8[0]:.3e} abs {r8[1]:.3e}"
-            f" done-agree {r8[2]:.6f} (bound {rel_tol:g} (1+|ref|))")
+    errs = check_k1(cfg, dev)
 
     # ---- phase 3: main path ---------------------------------------------
     launches = check_grid(dev, cfg, 3, solved_min=0.999)[0]
-    B = bench.N_GOALS * bench.N_FORCES * len(bench.HALVES)
+    B = workloads.N_GOALS * workloads.N_FORCES * len(workloads.HALVES)
 
     # ---- phase 4: times ---------------------------------------------------
-    state, params = bench_lanes(cfg, 2, torch.float32, dev)
-    args = iter_args(state, params, cfg)
-    ms_kernel = cuda_ms(lambda: ipm_kernel.ipm_iteration_fused(*args), 20)
-    ms_plain = cuda_ms(lambda: ipm_kernel.ipm_iteration_reference(*args), 5)
-    ms_kernel2 = cuda_ms(lambda: ipm_kernel.ipm_iteration_fused(*args), 20)
-    say(f"phase 4 per iteration B=4096 f32 [{card}]: kernel {ms_kernel:.3f} "
-        f"ms (repeat {ms_kernel2:.3f} ms), plain PyTorch {ms_plain:.3f} ms")
-
+    ms_kernel, ms_plain, bound_ms, bound_by = time_k1(cfg, dev, card)
     lat_ms, iters = grid_times(cfg, dev)
     say(f"phase 4 grid solve B={B} f32 [{card}]: {lat_ms.mean():.2f} ms/call "
         f"(min {lat_ms.min():.2f}, max {lat_ms.max():.2f}), "
@@ -1155,7 +1329,8 @@ def main() -> int:
         "name": "ipm_iteration", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES, "launches": launches,
         "max_abs_err": errs[torch.float32], "ms": ms_kernel,
-        "plain_ms": ms_plain,
+        "plain_ms": ms_plain, "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": None,
     }, *slice2, *slice3]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -11,13 +11,13 @@
 // loader: the fused loaders (K4) assemble the barrier-weighted stage QP
 // blocks from the weight tables, the sigmas and the corridor rows, and the
 // augmented dynamics [[Ax, 0], [0, 0]], [[Bx], [I4]] from the 9x9 / 9x4 RK2
-// Jacobians, with the device code K1 runs (riccati.cuh); the block loaders
+// Jacobians, with the device code of riccati.cuh; the block loaders
 // (K5) read pre-assembled Q/R/S/A/B from global memory.  The plain PyTorch
 // versions are ops/lqr_kernel.py::*_reference (solver/riccati.py::
 // lqr_factor_ll / lqr_solve_ll, the K4 ones after the assembly of
 // ipm_lanes.lane_step).
 //
-// Design (right and simple first, as K1):
+// Design (right and simple first):
 //  * one thread per lane, b = blockIdx.x*blockDim.x + threadIdx.x, no lane
 //    padding (guard b < B); every tensor lane-minor, element
 //    [(stage*rows + r)*B + b], so a warp's loads and stores coalesce;
@@ -59,7 +59,7 @@ constexpr int THREADS = 32;
 template <typename T>
 struct FusedConsts {
   T reg, rmax2;
-  int nh;  // corridor rows, 1..NH (assemble_stage<0> reads it)
+  int nh;  // corridor rows, 1..NH (assemble_stage reads it)
 };
 
 // K4: Q/R/S assembled from the weights, sigma (N, 34 + nh) and the
@@ -73,7 +73,7 @@ struct FusedQP {
     T sg[34 + NH], Ai[NH * 3];
     ld(sig, size_t(i) * ns, sg, ns);
     ld(A, size_t(i) * c.nh * 3, Ai, c.nh * 3);
-    assemble_stage<0>(sg, Ai, wwp[i], win[i], wrt[i], wvl[i], wup[i], c, Q,
+    assemble_stage(sg, Ai, wwp[i], win[i], wrt[i], wvl[i], wup[i], c, Q,
                       R, S);
   }
 };
@@ -117,7 +117,7 @@ struct Factor {
   Lane<P> P_, K, cRh, RiS, cRt;  // (N,13,13) (N-1,4,13) (N-1,10) (4,13) (10)
 };
 
-// ---- the factor sweep (riccati.lqr_factor_ll; K1's phase 5) ---------------
+// ---- the factor sweep (riccati.lqr_factor_ll) -----------------------------
 template <typename T, typename QP, typename Dyn>
 __device__ void factor_sweep(const QP& qp, const Dyn& dyn, const int N,
                              const Factor<T>& f) {
@@ -161,7 +161,7 @@ __device__ void factor_sweep(const QP& qp, const Dyn& dyn, const int N,
   }
 }
 
-// ---- the backsolve (riccati.lqr_solve_ll; K1's phase 6) -------------------
+// ---- the backsolve (riccati.lqr_solve_ll) ---------------------------------
 // p_s (N x 13) and k_s ((N-1) x 4) are the lane's scratch stacks.
 template <typename T, typename Dyn>
 __device__ void backsolve(const Dyn& dyn, const int N,

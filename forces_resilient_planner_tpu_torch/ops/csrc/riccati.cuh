@@ -1,7 +1,8 @@
-// Device code shared by the whole-iteration kernel (ipm_iteration.cu, K1)
-// and the Riccati kernels (lqr.cu, K4 and K5): lane-minor views, the packed
-// 4x4 Cholesky factor and solve, the barrier-weighted stage QP assembly and
-// the augmented dynamics of the 13-wide Riccati state [x(9), u_prev(4)].
+// Device code of the Riccati kernels (lqr.cu, K4 and K5): lane-minor views,
+// the packed 4x4 Cholesky factor and solve, the barrier-weighted stage QP
+// assembly and the augmented dynamics of the 13-wide Riccati state
+// [x(9), u_prev(4)].  The whole-iteration kernel (ipm_iteration.cu, K1)
+// shares its dimensions.
 #pragma once
 
 #include "common.cuh"
@@ -75,15 +76,12 @@ __device__ void chol4_solve(const T* f, const T* Bm, T* X) {
 // barrier-weighted stage QP blocks Q (13x13), R (4x4), S (4x13)
 // (ipm_lanes._assemble_qp_blocks, stage i).  sig holds the stage's 34 + nh
 // inequality sigmas (17 lb, 17 ub, nh corridor rows), Ai its nh corridor
-// rows (3 values each); c supplies reg and rmax2.  ROWS > 0 fixes
-// nh = ROWS at compile time (K1: NH); ROWS = 0 reads nh >= 1 from c.nh (K4).
-template <int ROWS, typename T, typename C>
+// rows (3 values each); c supplies reg, rmax2 and nh >= 1.
+template <typename T, typename C>
 __device__ __noinline__ void assemble_stage(
     const T* sig, const T* Ai, T wwp, T win, T wrt, T wvl, T wup,
     const C& c, T* Q, T* R, T* S) {
-  int nh;
-  if constexpr (ROWS > 0) nh = ROWS;
-  else nh = c.nh;
+  const int nh = c.nh;
   for (int k = 0; k < NXB * NXB; ++k) Q[k] = T(0);
   for (int k = 0; k < NU * NU; ++k) R[k] = T(0);
   for (int k = 0; k < NU * NXB; ++k) S[k] = T(0);
@@ -103,16 +101,16 @@ __device__ __noinline__ void assemble_stage(
     else if (k == 8) xd += T(24) * wwp;
     Q[k * NXB + k] = xd;
   }
-  // corridor 3x3 position block: sum_k A_kj sc_k A_kl.  K1 sums each of the
-  // nine entries on its own; K4 sums l >= j and mirrors, in the plain
-  // version's order (ops/lqr_kernel.py::_assemble_qp_blocks), so that with
-  // lqr.cu's -fmad=false it matches that version bit for bit.
+  // corridor 3x3 position block: sum_k A_kj sc_k A_kl, summed for l >= j
+  // and mirrored, in the plain version's order (ops/lqr_kernel.py::
+  // _assemble_qp_blocks), so that with lqr.cu's -fmad=false it matches
+  // that version bit for bit.
   for (int j = 0; j < 3; ++j)
-    for (int l = ROWS > 0 ? 0 : j; l < 3; ++l) {
+    for (int l = j; l < 3; ++l) {
       T acc = (Ai[j] * sig[34]) * Ai[l];
       for (int k = 1; k < nh; ++k) acc += (Ai[3 * k + j] * sig[34 + k]) * Ai[3 * k + l];
       Q[j * NXB + l] += acc;
-      if (ROWS == 0 && l != j) Q[l * NXB + j] += acc;
+      if (l != j) Q[l * NXB + j] += acc;
     }
 }
 

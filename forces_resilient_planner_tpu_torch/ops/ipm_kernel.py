@@ -7,6 +7,11 @@ evaluates residuals and KKT errors, updates the barrier, factors and
 backsolves the Riccati KKT system, takes fraction-to-boundary steps and
 applies the NaN guard and the masked state update.
 
+The kernel runs one team of 64 threads (two warps) per lane and `lanes`
+lanes per CTA, each lane's working set in shared memory (csrc/ipm_iteration.cu's
+header says how); `launch_geometry` picks the lanes per CTA and the
+shared-memory bytes for a dtype and horizon.
+
 Route by device: on a CPU tensor `ipm_iteration_fused` runs
 `ipm_iteration_reference` (one monotone step of solver/ipm_lanes.py::
 lane_step); on a CUDA tensor it launches the kernel or raises.
@@ -22,15 +27,15 @@ from forces_resilient_planner_tpu_torch.ops import _build
 from forces_resilient_planner_tpu_torch.solver import ipm_lanes, nlp
 
 SOURCE = "ipm_iteration.cu"
-NZ, NXB, NU, NH = 17, 13, 4, 30
+NZ, NXB, NU, NX, NH = 17, 13, 4, 9, 30
 NIN = 64  # inequality rows per stage: 17 lb + 17 ub + 30 corridor
-N_POINTERS = 23  # 17 inputs, 5 outputs, 1 scratch (see the C entry points)
+N_INPUTS, N_OUTPUTS = 17, 5
+TEAM = 64               # threads per lane (two warps)
+MAX_LANES = 4           # lanes per CTA: <= 256 threads
+SMEM_PER_CTA = 232_448  # shared memory one CTA may use on sm_90 (bytes)
 
 # kernel launches, over all calls in this process
 LAUNCHES = 0
-
-# one scratch buffer per (device, dtype, N, B): ~55 KB per lane at f32
-_scratch: dict = {}
 
 _SCALARS = (
     "mass", "g", "drag", "dt", "rmax2", "hu", "tol", "mu_floor", "tol_ref",
@@ -54,16 +59,52 @@ _CONSTS = {
 }
 
 
+def lane_elements(N: int) -> int:
+    """Values of one lane's shared-memory layout at horizon N
+    (csrc/ipm_iteration.cu::lane_layout): the inputs, the dynamics (Ax, Bx,
+    c), grad f / q / dZ, the stage QP blocks, P's upper triangles, K, the
+    Cholesky factors, k, p / nu and the phase scratch."""
+    n1 = N - 1
+    inputs = (NZ + NXB + 2 * NIN + 5 + 3 + 1 + 3 * NH + NH) * N + 4 + 3 + NX + 1
+    per_gap = NX * NX + NX * NU + NXB + NU * NXB + 10 + NU
+    stage_blocks = NXB + 6 + NU + 1
+    per_stage = NZ + stage_blocks + NXB * (NXB + 1) // 2 + NXB
+    factor_scratch = 3 * NXB * NXB + NU * NU + 2 * NU * NXB
+    reductions = 2 * 16
+    return (inputs + 2 * NZ + reductions + n1 * per_gap + N * per_stage
+            + NU * NXB + 10 + max(factor_scratch, NH * N))
+
+
+def launch_geometry(dtype, N: int, max_lanes: int = MAX_LANES):
+    """(lanes per CTA, shared-memory bytes per CTA, lane stride in values)
+    for the kernel at `dtype` and horizon N: the most lanes, a power of two
+    up to max_lanes, whose stacks fit in SMEM_PER_CTA.  The stride pads a
+    lane to a multiple of 32 values plus 8, so that the CTA's copy of row
+    r for consecutive lanes spreads over the shared-memory banks."""
+    if N < 2:
+        raise ValueError(f"need N >= 2 stages, got {N}")
+    if dtype not in _CONSTS:
+        raise ValueError(f"the CUDA kernel takes float32 or float64, not {dtype}")
+    stride = -(-lane_elements(N) // 32) * 32 + 8
+    per_lane = stride * torch.empty((), dtype=dtype).element_size()
+    lanes = 1
+    while 2 * lanes <= max_lanes and 2 * lanes * per_lane <= SMEM_PER_CTA:
+        lanes *= 2
+    if per_lane > SMEM_PER_CTA:
+        raise ValueError(
+            f"one lane at N = {N} needs {per_lane} B of shared memory, more "
+            f"than a CTA's {SMEM_PER_CTA} B at {dtype}"
+        )
+    return lanes, lanes * per_lane, stride
+
+
 def _bind(lib):
-    lib.ipm_scratch_per_lane.argtypes = [ctypes.c_int]
-    lib.ipm_scratch_per_lane.restype = ctypes.c_size_t
+    lib.ipm_lane_elements.argtypes = [ctypes.c_int]
+    lib.ipm_lane_elements.restype = ctypes.c_int
     for name in ("ipm_iteration_f32", "ipm_iteration_f64"):
         fn = getattr(lib, name)
-        fn.argtypes = (
-            [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
-            + [ctypes.c_void_p] * N_POINTERS
-            + [ctypes.c_void_p]
-        )
+        fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 4 + [
+            ctypes.c_void_p] * 3
         fn.restype = ctypes.c_int
 
 
@@ -135,8 +176,6 @@ def ipm_iteration_fused(
             Z, lam, s, mu_d, scal, weights, ref_pos, ref_yaw, A, b, f_ext,
             xinit, max_iters_lane, mcfg, scfg,
         )
-    if Z.device.type != "cuda":
-        raise ValueError(f"no route for tensors on {Z.device}")
     if scfg.mu_superlin != 1.5:
         raise ValueError(
             "the CUDA kernel implements mu_superlin == 1.5 (mu * sqrt(mu)) "
@@ -158,25 +197,37 @@ def ipm_iteration_fused(
         + [(N, 3, B), (N, B), (N, NH, 3, B), (N, NH, B), (3, B), (9, B), (B,)]
     )
     _check_inputs(zip(names, ins, shapes), Z.dtype, Z.device)
+    launch_geometry(Z.dtype, N)
+    if Z.device.type != "cuda":
+        raise ValueError(f"no route for tensors on {Z.device}")
 
     lib = _build.load(SOURCE, _bind)
-    struct, entry = _CONSTS[Z.dtype]
-    consts = _consts(struct, mcfg, scfg)
-    key = (Z.device, Z.dtype, N, B)
-    if key not in _scratch:
-        _scratch[key] = torch.empty(
-            lib.ipm_scratch_per_lane(N) * B, dtype=Z.dtype, device=Z.device
-        )
     outs = [torch.empty_like(t) for t in (Z, lam, s, mu_d, scal)]
     with torch.cuda.device(Z.device):
         stream = torch.cuda.current_stream(Z.device).cuda_stream
-        rc = getattr(lib, entry)(
-            ctypes.addressof(consts), N, B,
-            *(t.data_ptr() for t in ins),
-            *(t.data_ptr() for t in outs),
-            _scratch[key].data_ptr(), stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"ipm_iteration kernel launch failed: CUDA error {rc}")
+        launch(lib, ins, outs, mcfg, scfg, stream)
     LAUNCHES += 1
     return tuple(outs)
+
+
+def launch(lib, ins, outs, mcfg: ModelConfig, scfg: SolverConfig, stream,
+           max_lanes: int = MAX_LANES):
+    """Launch the library's kernel on checked, contiguous lane-major tensors
+    (ins: the 17 inputs of ipm_iteration_fused in order, outs: the 5
+    outputs) on `stream`; raises on a refused launch."""
+    Z = ins[0]
+    N, _, B = Z.shape
+    lanes, _, stride = launch_geometry(Z.dtype, N, max_lanes)
+    if lib.ipm_lane_elements(N) > stride:
+        raise RuntimeError("csrc/ipm_iteration.cu's lane layout outgrew "
+                           "lane_elements()")
+    struct, entry = _CONSTS[Z.dtype]
+    consts = _consts(struct, mcfg, scfg)
+    rc = getattr(lib, entry)(
+        ctypes.addressof(consts), N, B, lanes.bit_length() - 1, stride,
+        (ctypes.c_void_p * N_INPUTS)(*(t.data_ptr() for t in ins)),
+        (ctypes.c_void_p * N_OUTPUTS)(*(t.data_ptr() for t in outs)),
+        stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"ipm_iteration kernel launch failed: CUDA error {rc}")

@@ -24,6 +24,7 @@ def _run(code_or_args, timeout=300):
     "forces_resilient_planner_tpu_torch.engine.reference",
     "forces_resilient_planner_tpu_torch.engine.pipeline",
     "forces_resilient_planner_tpu_torch.engine.pipeline_batch",
+    "forces_resilient_planner_tpu_torch.engine.workloads",
     "forces_resilient_planner_tpu_torch.corridor.decomp",
     "forces_resilient_planner_tpu_torch.tube.lyapunov",
     "forces_resilient_planner_tpu_torch.ops.tube_kernel",
@@ -33,14 +34,43 @@ def _run(code_or_args, timeout=300):
     "forces_resilient_planner_tpu_torch.solver.ipm_lanes",
     "forces_resilient_planner_tpu_torch.solver.riccati",
     "forces_resilient_planner_tpu_torch.solver.problems",
+    "forces_resilient_planner_tpu_torch.tools.k1_phase_probe",
 ])
 def test_port_imports_no_jax(module):
+    """Neither jax nor any module of the JAX package is loaded."""
     proc = _run(
         f"import sys, {module}; "
-        "assert 'jax' not in sys.modules, sorted(m for m in sys.modules "
-        "if m.startswith('jax'))"
+        "bad = sorted(m for m in sys.modules if m == 'jax' "
+        "or m.startswith('jax.') or m == 'forces_resilient_planner_tpu' "
+        "or m.startswith('forces_resilient_planner_tpu.')); "
+        "assert not bad, bad"
     )
     assert proc.returncode == 0, proc.stderr
+
+
+def _imported_modules(path):
+    """Every module an `import` or `from ... import` names in the file, at
+    any depth (inside functions too)."""
+    import ast
+
+    names = set()
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names.add(node.module)
+    return names
+
+
+def test_chip_smoke_imports_no_bench_graft_entry_or_jax_package():
+    names = _imported_modules(os.path.join(REPO, "chip_smoke.py"))
+    assert "forces_resilient_planner_tpu_torch.engine" in names
+    for name in names:
+        root = name.split(".")[0]
+        assert root not in ("bench", "__graft_entry__", "jax",
+                            "forces_resilient_planner_tpu"), name
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
