@@ -26,7 +26,10 @@ printed):
   0. device: needs torch.cuda; prints the card's name and power limit
   1. build: compiles the four kernel sources with nvcc, all at once;
      prints build seconds and the ptxas register / spill report of each
-     entry function, and K1's lanes and shared memory per CTA
+     entry function, K1's lanes and shared memory per CTA, K2's stage lanes,
+     threads and shared memory per CTA (a team of 9 threads per lane) and
+     K3's lanes per stage, threads and shared memory per CTA at M = 256,
+     1024 and 2048
   2. K1 vs its plain PyTorch version on the card at B = 4096, one
      iteration from the initial state and one after 8 plain iterations:
      f64 |d| <= 1e-9 (1 + |ref|) with identical it/done; f32 from the
@@ -63,7 +66,10 @@ printed):
      card's NLP of robots 0-63 re-solved by the plain solver at f64 within
      1e-3 in u); the step through the plain versions on the card, its
      exit-code agreement printed and its solved fraction within 0.005
-  8. slice 2 times: K2 and K3 ms per call against their plain versions;
+  8. slice 2 times: K2 and K3 ms per call against their plain versions,
+     each beside its bound and the share of it (K3's bound from the work
+     this run's data needs: ops/corridor_kernel.py::decompose_stages_work);
+     K3 at M = CorridorConfig.max_obstacles (2048), its geometry there;
      nmpc_step_batched ms per call and steps/s over 5 pre-staged fresh
      input sets of each workload; engine/pipeline.py::nmpc_step at B = 1,
      p50 / p99 over 30 calls, in the engine/workloads.py::small_cfg
@@ -92,7 +98,8 @@ printed):
 The {"kernels"} line's bound_ms is the larger of the bytes the kernel must
 move (inputs read once, outputs written once) over the H100's 3.35 TB/s
 and its operations over 67 TFLOP/s (f32, no tensor cores), computed from
-this run's inputs; library_ms is null for all seven kernels (no single
+this run's inputs (K2: the doublings its lanes take; K3: the sets of the
+rounds that run on its data); library_ms is null for all seven kernels (no single
 PyTorch call computes any of them).  max_abs_err is, for every kernel, the
 f32 kernel against its plain version on the main path's inputs at the
 main path's shape (K1: the grid's initial IPM state; K2: the step's stage lanes; K3:
@@ -335,22 +342,14 @@ def k1_flops(N):
             + (N - 1) * dyn + N * stage)
 
 
-def tube_flops(Phi, dt, n_terms):
-    """K2 per call from this run's data: per lane 2 n_terms Horner and 3
-    n_terms series 9x9 products, 8 per doubling (s doublings, from the 1-norm
-    of Phi dt as the kernel takes them), and Bc K (multiply-add = 2)."""
-    norm1 = (Phi * dt).abs().sum(dim=-2).amax(dim=-1)
-    s = torch.ceil(torch.log2(torch.clamp(norm1 / 0.5, min=1.0)))
-    s = torch.nan_to_num(s, nan=0.0).clamp(0, 4)
-    products = 5 * n_terms * Phi.shape[0] + 8 * s.sum().item()
-    return 2 * 729 * products + 2 * 81 * 4 * Phi.shape[0]
-
-
-def corridor_flops(B, N, M):
-    """K3: the bounding-box filter of every stage's cloud (6 operations per
-    obstacle).  A lower bound: the shrink and peel rounds stop early on this
-    data and are not counted."""
-    return 6 * B * N * M
+def corridor_flops(args, ccfg):
+    """K3 per call from this run's data: the bbox filter of every stage's
+    cloud, then each executed shrink and peel round's set times the
+    operations of one evaluation, plus each round's scalar chain
+    (ops/corridor_kernel.py::decompose_stages_work).  Returns (operations,
+    the counts)."""
+    work = corridor_kernel.decompose_stages_work(*args, ccfg)
+    return corridor_kernel.work_operations(work), work
 
 
 # ---------------------------------------------------------------------------
@@ -796,14 +795,31 @@ def run_slice2(dev, card):
     ms3p = cuda_ms(lambda: corridor_kernel.decompose_stages_reference(*cargs),
                    2)
     Phi = tube_kernel.tube_stage_reference(*targs)[2]
+    ops2 = tube_kernel.tube_stage_operations(Phi, cfg.model.dt,
+                                             lyapunov.taylor_n_terms(f32))
     b2 = bound(tensor_bytes(x, u, tube_kernel.tube_stage_reference(*targs)),
-               tube_flops(Phi, cfg.model.dt, lyapunov.taylor_n_terms(f32)))
+               ops2)
+    ops3, work3 = corridor_flops(args3, cfg.corridor)
     b3 = bound(tensor_bytes(args3, corridor_kernel.decompose_stages_reference(
-        *cargs)), corridor_flops(B, N, STEP_M))
+        *cargs)), ops3)
     say(f"phase 8 kernels f32 [{card}]: K2 {ms2:.3f} ms vs plain {ms2p:.3f} "
-        f"ms at L={B * N}, bound {b2[0]:.4f} ms by {b2[1]}; K3 {ms3:.3f} ms "
-        f"vs plain {ms3p:.3f} ms at B={B} N={N} M={STEP_M}, bound "
-        f"{b3[0]:.4f} ms by {b3[1]}")
+        f"ms at L={B * N}, bound {b2[0]:.4f} ms by {b2[1]} "
+        f"({1e-9 * ops2:.3f} GFLOP), {100 * b2[0] / ms2:.2f}% of the bound; "
+        f"K3 {ms3:.3f} ms vs plain {ms3p:.3f} ms at B={B} N={N} M={STEP_M}, "
+        f"bound {b3[0]:.4f} ms by {b3[1]} ({1e-9 * ops3:.4f} GFLOP of work "
+        f"{work3}), {100 * b3[0] / ms3:.2f}% of the bound")
+    # K3 at the configuration's own obstacle buffer (CorridorConfig.
+    # max_obstacles), where its groups widen
+    Mx = cfg.corridor.max_obstacles
+    big = stage_segments(step_inputs(1, B, f32, dev, M=Mx), cfg)
+    lib3 = _build.load(corridor_kernel.SOURCE, corridor_kernel._bind)
+    msx = cuda_ms(lambda: corridor_kernel.decompose_stages_lanes(
+        *big, cfg.corridor, cfg.model.nh), 5)
+    lanes, threads, smem = corridor_kernel.launch_geometry(lib3, N, Mx, f32)
+    say(f"phase 8 K3 f32 [{card}] at B={B} N={N} M={Mx}: {msx:.3f} ms "
+        f"({lanes} lanes per stage, {threads} threads, {smem} B of shared "
+        "memory per CTA)")
+    del big
 
     for drift, label in ((False, ""), (True, ", every 4th robot drifted")):
         step_times(cfg, dev, drift, label, card, 8)
@@ -1290,6 +1306,24 @@ def build_phase():
                    f"{ipm_kernel.TEAM * lanes} threads")
     say(f"phase 1 K1 ({KERNEL_SOURCE}) at N = {N}: " + "; ".join(geo)
         + " (registers and spills: the ipm_iteration.cu line above)")
+    lib2 = _build.load(tube_kernel.SOURCE, tube_kernel._bind)
+    geo = []
+    for dtype in (torch.float32, torch.float64):
+        lanes, threads, smem = tube_kernel.launch_geometry(lib2, dtype)
+        geo.append(f"{str(dtype)[6:]} {lanes} stage lanes x 9 threads "
+                   f"({threads} threads, {smem} B of shared memory) per CTA")
+    say("phase 1 K2 (tube_stage.cu): " + "; ".join(geo)
+        + " (registers and spills: the tube_stage.cu line above)")
+    lib3 = _build.load(corridor_kernel.SOURCE, corridor_kernel._bind)
+    geo = []
+    for dtype in (torch.float32, torch.float64):
+        for M in (STEP_M, 1024, 2048):
+            lanes, threads, smem = corridor_kernel.launch_geometry(
+                lib3, N, M, dtype)
+            geo.append(f"{str(dtype)[6:]} M={M}: {lanes} lanes per stage, "
+                       f"{threads} threads, {smem} B of shared memory")
+    say(f"phase 1 K3 (corridor.cu) per CTA (one scenario, N = {N}): "
+        + "; ".join(geo) + " (registers: the corridor.cu line above)")
 
 
 def main() -> int:

@@ -122,11 +122,21 @@ def _pick(obs: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     )[..., 0, :]
 
 
+def _count(work, key: str, sets: torch.Tensor) -> None:
+    """work[key] += the number of True entries of sets."""
+    work[key] = work.get(key, 0) + int(sets.sum())
+
+
 def find_ellipsoid(
     p1: torch.Tensor, p2: torch.Tensor, obs: torch.Tensor,
-    obs_mask: torch.Tensor, cfg: CorridorConfig,
+    obs_mask: torch.Tensor, cfg: CorridorConfig, work: dict | None = None,
 ) -> Ellipsoid:
-    """Sphere-seeded iterative axis shrink (line_segment.h:134-211, offset=0)."""
+    """Sphere-seeded iterative axis shrink (line_segment.h:134-211, offset=0).
+
+    work (a counting dict, None on every path that computes): adds the
+    sets that the algorithm evaluates, as decompose_segment describes, and
+    leaves work["known"], the obstacles whose distance under the returned
+    ellipsoid the last round already took."""
     f = torch.clamp(0.5 * norm3(p1 - p2), min=1e-6)
     Ri = seed_rotation(p1, p2)
     d = 0.5 * (p1 + p2)
@@ -135,6 +145,10 @@ def find_ellipsoid(
 
     dist0 = ellipsoid_dist(Ellipsoid(C=f[..., None, None] * eye, d=d), obs)
     inside0 = obs_mask & (dist0 <= 1.0)
+    if work is not None:
+        _count(work, "sphere", obs_mask)
+        _count(work, "dist", inside0)            # the seed ellipsoid's
+        known = inside0
 
     # ---- phase 1: shrink middle axis (b), re-rolling the frame ----------
     a0, a1, a2 = f, f, f
@@ -164,6 +178,10 @@ def find_ellipsoid(
         Rf = torch.where(any_in[..., None, None], Rf_new, Rf)
         a1 = torch.where(any_in, b_new, a1)
         new_d = ellipsoid_dist(Ellipsoid(_frame_C(Rf, a0, a1, a1), d), obs)
+        if work is not None:
+            _count(work, "shrink1", any_in)
+            _count(work, "dist", inside)
+            known = torch.where(any_in[..., None], inside, known)
         inside = torch.where(any_in[..., None],
                              inside & (1.0 - new_d > eps), inside)
 
@@ -171,6 +189,12 @@ def find_ellipsoid(
     # reset with the old axes[2] (= f), re-filter from the initial inside set
     d2 = ellipsoid_dist(Ellipsoid(_frame_C(Rf, a0, a1, a2), d), obs)
     inside = obs_mask & (d2 <= 1.0) & (dist0 <= 1.0)
+    if work is not None:
+        # a new ellipsoid only where phase 1 ran, i.e. the sphere set is not
+        # empty; else it is the seed one
+        _count(work, "reset", inside0.any(dim=-1))
+        _count(work, "dist", inside0)
+        known = inside0
     for _ in range(cfg.shrink_iters):
         dists = ellipsoid_dist(Ellipsoid(_frame_C(Rf, a0, a1, a2), d), obs)
         any_in = inside.any(dim=-1)
@@ -184,8 +208,14 @@ def find_ellipsoid(
         )
         a2 = torch.where(any_in, c_new, a2)
         new_d = ellipsoid_dist(Ellipsoid(_frame_C(Rf, a0, a1, a2), d), obs)
+        if work is not None:
+            _count(work, "shrink2", any_in)
+            _count(work, "dist", inside)
+            known = torch.where(any_in[..., None], inside, known)
         inside = torch.where(any_in[..., None],
                              inside & (1.0 - new_d > eps), inside)
+    if work is not None:
+        work["known"] = known
     return Ellipsoid(C=_frame_C(Rf, a0, a1, a2), d=d)
 
 
@@ -196,19 +226,29 @@ class PlaneSet(NamedTuple):
 
 
 def find_polyhedron(
-    E: Ellipsoid, obs: torch.Tensor, obs_mask: torch.Tensor, max_planes: int
+    E: Ellipsoid, obs: torch.Tensor, obs_mask: torch.Tensor, max_planes: int,
+    work: dict | None = None,
 ) -> PlaneSet:
     """Supporting-hyperplane peeling (decomp_base.h:63-83): each round takes
     the ellipsoid-closest remaining obstacle, adds the tangent plane there
     (normal C^{-1}C^{-T}(p-d), ellipsoid.h:52-57) and drops the obstacles
-    with signed distance >= 0 (decomp_base.h:71-74 keeps < 0)."""
+    with signed distance >= 0 (decomp_base.h:71-74 keeps < 0).
+
+    work (a counting dict, None on every path that computes): adds the
+    distances under E not in work.pop("known") (find_ellipsoid's), each
+    executed round and the set it tests."""
     Ci = inv3(E.C)
     Mq = Ci @ Ci.transpose(-1, -2)
     dists = ellipsoid_dist(E, obs)               # loop-invariant
     remain = obs_mask.expand(dists.shape)
+    if work is not None:
+        _count(work, "dist", remain & ~work.pop("known"))
     pts, ns, valid = [], [], []
     for _ in range(max_planes):
         any_left = remain.any(dim=-1)
+        if work is not None:
+            _count(work, "peel", any_left)
+            _count(work, "halfspace", remain)
         idx = _closest_masked(dists, remain)
         pw = _pick(obs, idx)
         n = _mv(Mq, pw - E.d)
@@ -314,10 +354,29 @@ def compact_obstacles(
 def decompose_segment(
     p1: torch.Tensor, p2: torch.Tensor, obs: torch.Tensor,
     obs_mask: torch.Tensor, cfg: CorridorConfig, nh: int = 30,
+    work: dict | None = None,
 ) -> CorridorResult:
     """Full line-segment decomposition -> padded (A, b) with nh rows.
 
-    Row layout: [obstacle planes (max_obs_planes), bbox walls (6), zeros]."""
+    Row layout: [obstacle planes (max_obs_planes), bbox walls (6), zeros].
+
+    work: None on every path that computes.  A dict (counting helpers, e.g.
+    ops/corridor_kernel.py::decompose_stages_work) gets the number of
+    evaluations the decomposition of these inputs needs, counted on the
+    sets of the rounds that run (a round runs where its set is not empty),
+    each key added to:
+      stages     segments
+      bbox       bbox tests: each segment's valid obstacles
+      sphere     its bbox set: o - d and the distance under the sphere
+      reset      segments whose sphere set is not empty: phase 2's reset
+                 ellipsoid (else it is the seed one)
+      dist       general ellipsoid distances: the seed ellipsoid and the
+                 reset one over the sphere set, each shrink round's new
+                 ellipsoid over the round's set, the peel's over the bbox
+                 set less those the last round took under the same one
+      shrink1, shrink2, peel   executed rounds
+      halfspace  each executed peel round over its remaining set
+    (compaction, max_active_obstacles, not counted)."""
     bbox = cfg.local_bbox
     k = cfg.max_active_obstacles
     if k and k < obs.shape[-2]:
@@ -325,8 +384,12 @@ def decompose_segment(
                                       cfg.epsilon)
     else:
         mask = bbox_filter_obstacles(p1, p2, bbox, obs, obs_mask, cfg.epsilon)
-    E = find_ellipsoid(p1, p2, obs, mask, cfg)
-    obs_planes = find_polyhedron(E, obs, mask, cfg.max_obs_planes)
+    if work is not None:
+        _count(work, "stages", torch.ones(p1.shape[:-1], dtype=torch.bool))
+        _count(work, "bbox",
+               obs_mask.expand(p1.shape[:-1] + obs_mask.shape[-1:]))
+    E = find_ellipsoid(p1, p2, obs, mask, cfg, work)
+    obs_planes = find_polyhedron(E, obs, mask, cfg.max_obs_planes, work)
     walls = local_bbox_planes(p1, p2, bbox)
     planes = PlaneSet(
         points=torch.cat([obs_planes.points, walls.points], dim=-2),

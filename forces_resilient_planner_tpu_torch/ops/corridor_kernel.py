@@ -46,13 +46,56 @@ _STRUCTS = {dt: _consts_struct(ct) for dt, (_, ct) in _ENTRY.items()}
 
 
 def _bind(lib):
-    lib.corridor_smem_bytes.argtypes = [ctypes.c_int] * 3
-    lib.corridor_smem_bytes.restype = ctypes.c_size_t
+    lib.corridor_geometry.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3
+    lib.corridor_geometry.restype = None
     for name, _ in _ENTRY.values():
         fn = getattr(lib, name)
-        fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 3
+        fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 4
                        + [ctypes.c_void_p] * 6 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
+
+
+def launch_geometry(lib, N: int, M: int, dtype, group: int = 0):
+    """(lanes per stage, threads, bytes of shared memory) per CTA (one
+    scenario) of the kernel in `lib` for N stages of M obstacles; group 0
+    is the kernel's default lanes per stage."""
+    lanes, threads = ctypes.c_int(), ctypes.c_int()
+    smem = ctypes.c_size_t()
+    lib.corridor_geometry(N, M, torch.empty((), dtype=dtype).element_size(),
+                          group, ctypes.byref(lanes), ctypes.byref(threads),
+                          ctypes.byref(smem))
+    return lanes.value, threads.value, smem.value
+
+
+def launch(lib, p1, p2, obs, obs_mask, ccfg: CorridorConfig, nh: int, stream,
+           group: int = 0):
+    """One launch of the kernel in `lib` (the nvcc build, or the CPU build
+    of the tests) on checked, contiguous inputs; group: 0, as the wrapper
+    passes, for the kernel's own lanes per stage (from N and M), or 4, 8,
+    16 or 32 to force a width (the tests).  Returns (A, b), allocated like
+    p1.  Raises when the launch fails."""
+    B, N, M = p1.shape[0], p1.shape[1], obs.shape[1]
+    entry, ctype = _ENTRY[p1.dtype]
+    consts = _STRUCTS[p1.dtype](
+        bbox=(ctype * 3)(*(float(v) for v in ccfg.local_bbox)),
+        eps=ccfg.epsilon, shrink_iters=ccfg.shrink_iters,
+        max_planes=ccfg.max_obs_planes, nh=nh,
+    )
+    A = p1.new_empty((B, N, nh, 3))
+    b = p1.new_empty((B, N, nh))
+    rc = getattr(lib, entry)(
+        ctypes.addressof(consts), B, N, M, group, p1.data_ptr(),
+        p2.data_ptr(), obs.data_ptr(), obs_mask.data_ptr(), A.data_ptr(),
+        b.data_ptr(), stream,
+    )
+    if rc != 0:
+        raise RuntimeError(
+            f"corridor kernel launch failed: CUDA error {rc} (one scenario "
+            f"of M = {M} obstacles takes "
+            f"{launch_geometry(lib, N, M, p1.dtype, group)[2]} bytes of "
+            "shared memory)"
+        )
+    return A, b
 
 
 def decompose_stages_reference(p1, p2, obs, obs_mask, ccfg: CorridorConfig,
@@ -64,6 +107,70 @@ def decompose_stages_reference(p1, p2, obs, obs_mask, ccfg: CorridorConfig,
     r = decomp.decompose_segment(p1, p2, obs[:, None], obs_mask[:, None],
                                  ccfg, nh)
     return r.A, r.b
+
+
+# Operations of one evaluation of each kind that corridor/decomp.py::
+# decompose_segment's work dict counts: the fewest that give the plain
+# version's result bit for bit (a multiply-add counts 2; a division, square
+# root or transcendental 1; compares, selects and negations 0; a common
+# subexpression once; an operand known to be 0 or 1 drops its operation).
+# From the formulas of corridor/decomp.py, which csrc/corridor.cu follows:
+OPS_PER = {
+    # per segment, 227: v, d, |v| (15); the unit axis and the horizontal
+    # one (9), the vertical one from their cross product with a zero
+    # component (5); the 6 walls' offsets (50: the walls come in pairs of
+    # opposite normals, the horizontal pair has a zero component); the seed
+    # frame Ri (11: pitch from |v|'s partial sum, yaw, 4 cos/sin, 4 products
+    # at roll 0); f (1); the sphere's C^-1 = I / f (3); the seed
+    # ellipsoid's C^-1 (84, below, less Ri's zero entry); the peel's
+    # C^-1 C^-T (30: symmetric); the walls' outward signs (19)
+    "stages": 227,
+    # per valid obstacle of each segment: the 3 wall axes' products with
+    # it (the horizontal one has 2 terms) 13, then 6 offsets
+    "bbox": 19,
+    # per bbox-set obstacle: r = o - d (3, shared by every later distance
+    # and pick), ||r / f|| (3 mul, 3 mul + 2 add, sqrt)
+    "sphere": 12,
+    # ||C^-1 r||: 9 mul + 6 add, 3 mul + 2 add, sqrt
+    "dist": 21,
+    # the C^-1 of a frame Rf and axes a (frame_Cinv) costs 95: Rf diag(a)
+    # (9), C = (Rf diag(a)) Rf^T (45), the adjugate (27), the determinant
+    # (5), 9 divisions; less where a column of Rf diag(a) and its partial
+    # sums are those of the C^-1 before (same frame column and axis):
+    # phase 2's reset ellipsoid: the last phase-1 round's first two
+    # columns, 62
+    "reset": 62,
+    # per executed round: its scalar chain
+    # phase 1: Ri^T pw (15), roll (atan2, cos, sin), Rf = Ri Rx (18:
+    # column 0 is Ri's), Rf^T pw (10: its first entry is Ri^T pw's), the
+    # middle axis (5), C^-1 (83: column 0 is the seed's)
+    "shrink1": 134,
+    # phase 2: Rf^T pw (15), the vertical axis (8), C^-1 (62: columns 0
+    # and 1 are fixed)
+    "shrink2": 85,
+    # peel: the normal Mq (pw - d) (15), its norm (6) and unit (3), the row
+    # (pw . n, n . d - c: 11)
+    "peel": 35,
+    # per remaining obstacle of a peel round: n . (o - pw)
+    "halfspace": 8,
+}
+
+
+def decompose_stages_work(p1, p2, obs, obs_mask, ccfg: CorridorConfig):
+    """The work that the decomposition of these inputs needs: the counts of
+    corridor/decomp.py::decompose_segment's work dict (keys of OPS_PER),
+    taken from the plain version's own loops on these inputs.  A counting
+    helper for the kernel's bound (chip_smoke.py); the main path never
+    calls it.  Same arguments as decompose_stages_reference (without nh)."""
+    work = {k: 0 for k in OPS_PER}
+    decomp.decompose_segment(p1, p2, obs[:, None], obs_mask[:, None], ccfg,
+                             work=work)
+    return work
+
+
+def work_operations(work: dict) -> int:
+    """Operations of the work counted by decompose_stages_work."""
+    return sum(OPS_PER[k] * n for k, n in work.items())
 
 
 def decompose_stages_lanes(p1, p2, obs, obs_mask, ccfg: CorridorConfig,
@@ -102,27 +209,8 @@ def decompose_stages_lanes(p1, p2, obs, obs_mask, ccfg: CorridorConfig,
             "CPU tensors only"
         )
     lib = _build.load(SOURCE, _bind)
-    entry, ctype = _ENTRY[p1.dtype]
-    consts = _STRUCTS[p1.dtype](
-        bbox=(ctype * 3)(*(float(v) for v in ccfg.local_bbox)),
-        eps=ccfg.epsilon, shrink_iters=ccfg.shrink_iters,
-        max_planes=ccfg.max_obs_planes, nh=nh,
-    )
-    A = p1.new_empty((B, N, nh, 3))
-    b = p1.new_empty((B, N, nh))
     with torch.cuda.device(p1.device):
-        stream = torch.cuda.current_stream(p1.device).cuda_stream
-        rc = getattr(lib, entry)(
-            ctypes.addressof(consts), B, N, M, p1.data_ptr(), p2.data_ptr(),
-            obs.data_ptr(), obs_mask.data_ptr(), A.data_ptr(), b.data_ptr(),
-            stream,
-        )
-    if rc != 0:
-        raise RuntimeError(
-            f"corridor kernel launch failed: CUDA error {rc} (one scenario "
-            f"of M = {M} obstacles takes "
-            f"{lib.corridor_smem_bytes(N, M, p1.element_size())} bytes of "
-            "shared memory)"
-        )
+        A, b = launch(lib, p1, p2, obs, obs_mask, ccfg, nh,
+                      torch.cuda.current_stream(p1.device).cuda_stream)
     LAUNCHES += 1
     return A, b

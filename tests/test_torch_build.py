@@ -73,6 +73,19 @@ def test_chip_smoke_imports_no_bench_graft_entry_or_jax_package():
                             "forces_resilient_planner_tpu"), name
 
 
+def test_k23_probe_imports_no_jax_and_refuses_without_a_gpu():
+    """The root probe of K2 and K3 names no JAX module, and without a card it
+    stops before it times anything."""
+    for name in _imported_modules(os.path.join(REPO, "k23_probe.py")):
+        assert name.split(".")[0] not in (
+            "jax", "forces_resilient_planner_tpu", "bench",
+            "__graft_entry__"), name
+    proc = _run([sys.executable, "k23_probe.py", "--reps", "1"])
+    assert proc.returncode != 0
+    assert "needs an NVIDIA GPU" in proc.stderr
+    assert '"card"' not in proc.stdout
+
+
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.delenv("CUDA_HOME", raising=False)

@@ -11,12 +11,7 @@ std::thread) matches the plain version at f64 within 1e-9 (1 + |ref|),
 with identical it/done, and gives every lane the same bits wherever it
 sits.  The wrapper's checks and its launch geometry are tested here too
 (meta tensors: every check runs, no kernel exists)."""
-import ctypes
 import dataclasses
-import os
-import re
-import shutil
-import subprocess
 
 import jax
 import jax.numpy as jnp
@@ -24,15 +19,15 @@ import numpy as np
 import pytest
 import torch
 
+import _cuda_emu
 from forces_resilient_planner_tpu.config import DEFAULT_CONFIG as C
 from forces_resilient_planner_tpu.engine import batch as jb
 from forces_resilient_planner_tpu.solver import ipm_lanes as jl
-from forces_resilient_planner_tpu_torch.ops import _build, ipm_kernel
+from forces_resilient_planner_tpu_torch.ops import ipm_kernel
 from forces_resilient_planner_tpu_torch.solver import ipm_lanes as tl
 from forces_resilient_planner_tpu_torch.solver import nlp as tn
 
 F64 = torch.float64
-EMU = os.path.join(os.path.dirname(os.path.abspath(__file__)), "cuda_emu")
 
 
 def _scenarios():
@@ -219,29 +214,8 @@ def emulated_lib(tmp_path_factory):
     """csrc/ipm_iteration.cu built with g++ against the host stand-in of the
     CUDA runtime: its launch becomes emu::launch, its dynamic shared memory
     a per-block buffer."""
-    gxx = shutil.which("g++")
-    if gxx is None:
-        pytest.skip("needs g++ to build the kernel source for the CPU")
-    out = tmp_path_factory.mktemp("emu")
-    for header in _build.CSRC.glob("*.cuh"):
-        shutil.copy(header, out / header.name)
-    src = (_build.CSRC / ipm_kernel.SOURCE).read_text()
-    src, n_smem = re.subn(r"extern __shared__[^;]*\b(\w+)\[\];",
-                          r"unsigned char* \1 = emu::shared_memory();", src)
-    src, n_launch = re.subn(
-        r"([\w:]+(?:<\w+>)?)<<<([^,]+),([^,]+),([^,]+),([^>]+)>>>\(",
-        r"emu::launch(\1, \2,\3,\4, ", src)
-    assert n_smem == 1 and n_launch == 1
-    (out / "ipm_iteration.cpp").write_text(src)
-    so = out / "libipm_emu.so"
-    proc = subprocess.run(
-        [gxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread",
-         "-I", EMU, "-I", str(out), "-o", str(so), str(out / "ipm_iteration.cpp")],
-        capture_output=True, text=True, timeout=600)
-    assert proc.returncode == 0, proc.stderr
-    lib = ctypes.CDLL(str(so))
-    ipm_kernel._bind(lib)
-    return lib
+    return _cuda_emu.build(ipm_kernel.SOURCE, tmp_path_factory.mktemp("emu"),
+                           ipm_kernel._bind)
 
 
 def _emulated(lib, args):

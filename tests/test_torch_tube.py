@@ -7,6 +7,7 @@ f32: Qd within 1e-6 of the JAX f32 XLA path.  The Taylor term counts are
 pinned: the port's equal the JAX package's and the ones csrc/tube_stage.cu
 is launched with.  The CUDA kernel is held against its plain version on
 the card (cuda-marked test, and chip_smoke.py)."""
+import dataclasses
 import re
 from pathlib import Path
 
@@ -16,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+import _cuda_emu
 from forces_resilient_planner_tpu.config import DEFAULT_CONFIG as C
 from forces_resilient_planner_tpu.tube import lyapunov as jl
 from forces_resilient_planner_tpu_torch.ops import tube_kernel
@@ -203,3 +205,93 @@ def test_kernel_matches_plain_on_cuda(dtype):
             assert ((g - r).abs() <= tol * (1 + r.abs())).all()
         else:
             assert (g - r).abs().max().item() <= tol
+
+
+def test_operation_count_matches_hand_count():
+    """Four lanes Phi = c I with |c dt| = 0.25, 0.75, 100 and NaN: s = 0, 1,
+    4 (clamped) and 0 (nan_to_num), so 5 doublings.  7 terms: per lane 2 x
+    6 Horner products, 3 x 5 full series products and 3 of H_1's (225),
+    the elementwise steps and the fixed parts; per doubling 8 products and
+    3 x 81 sums; a product 9 x 17 operations per column."""
+    dt = C.model.dt
+    c = torch.tensor([0.25, 0.75, 100.0, float("nan")], dtype=T64) / dt
+    Phi = c[:, None, None] * torch.eye(9, dtype=T64)
+    ops = tube_kernel.tube_stage_operations(Phi, dt, 7)
+    product = 9 * 9 * 17
+    lane = (57 + 236 + 2 * (6 * product + 7 * 90)
+            + 3 * (225 + 5 * product + 7 * 180 + 45) + 758)
+    assert lane == tube_kernel.lane_operations(7) == 44080
+    assert ops == 4 * lane + 5 * (8 * product + 3 * 81)
+
+
+# ---- the CUDA source's arithmetic on the CPU (g++ and tests/cuda_emu) -----
+
+@pytest.fixture(scope="module")
+def emulated_tube(tmp_path_factory):
+    """csrc/tube_stage.cu built with g++ against the host stand-in of the
+    CUDA runtime (a thread per CUDA thread, masked warp barriers)."""
+    return _cuda_emu.build(tube_kernel.SOURCE, tmp_path_factory.mktemp("emu"),
+                           tube_kernel._bind)
+
+
+def _spread_lanes(L=40, seed=3):
+    """Stage lanes whose scaled 1-norm asks for 0 to 4 doublings under a
+    gain of 0.2 K, one lane with a NaN state: (x, u, tcfg)."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(0, 0.6, (L, 9))
+    u = np.array([0, 0, 0, 7.3]) + rng.normal(0, 0.8, (L, 4))
+    scale = np.geomspace(0.05, 100, L)
+    u[:, 3] *= scale
+    x[:, 3:6] *= scale[:, None]
+    x[7, 4] = np.nan
+    tcfg = dataclasses.replace(
+        C.tube, K=tuple(tuple(0.2 * v for v in row) for row in C.tube.K))
+    return torch.as_tensor(x), torch.as_tensor(u), tcfg
+
+
+def _emulated_tube(lib, x, u, tcfg):
+    return tube_kernel.launch(lib, x.contiguous(), u.contiguous(), C.model,
+                              tcfg, None)
+
+
+@pytest.mark.parametrize("dtype", [T64, torch.float32])
+def test_kernel_source_matches_plain_on_cpu(emulated_tube, dtype):
+    """f64 within 1e-10 (1 + |ref|) on 40 lanes (f64 CTAs of 6: a ragged
+    last one) with 0-4 doublings, the NaN lane NaN where the plain one is; f32
+    within phase 5's bars (Phi 2e-5, Mp 2e-6, Qd and Q1 1e-6 absolute) on
+    40 tube-regime lanes (f32 CTAs of 3: a ragged last one)."""
+    if dtype == T64:
+        x, u, tcfg = _spread_lanes()
+        Phi = tube_kernel.tube_stage_reference(x, u, C.model, tcfg)[2]
+        norm1 = (Phi * C.model.dt).abs().sum(dim=-2).amax(dim=-1)
+        s = torch.ceil(torch.log2(torch.clamp(norm1 / 0.5, min=1.0)))
+        assert set(s.clamp(0, 4).nan_to_num(0.0).tolist()) == {
+            0.0, 1.0, 2.0, 3.0, 4.0}
+    else:
+        x, u = (torch.as_tensor(a, dtype=dtype) for a in _points(40, seed=8))
+        tcfg = C.tube
+    got = _emulated_tube(emulated_tube, x, u, tcfg)
+    ref = tube_kernel.tube_stage_reference(x, u, C.model, tcfg)
+    bars = (1e-6, 2e-6, 2e-5, 1e-6)                   # Qd, Mp, Phi, Q1
+    for g, r, bar in zip(got, ref, bars):
+        assert torch.equal(g.isnan(), r.isnan())
+        fin = ~r.isnan()
+        d = (g - r).abs()[fin]
+        if dtype == T64:
+            assert (d <= 1e-10 * (1 + r.abs()[fin])).all(), d.max()
+        else:
+            assert d.max().item() <= bar, d.max()
+
+
+def test_kernel_source_lane_results_do_not_depend_on_their_slot(
+        emulated_tube):
+    """A permutation of the lanes permutes the outputs bit for bit, and 5
+    lanes launched alone equal the same lanes of the full launch."""
+    x, u, tcfg = _spread_lanes()
+    full = _emulated_tube(emulated_tube, x, u, tcfg)
+    for idx in (torch.randperm(40, generator=torch.Generator().manual_seed(3)),
+                torch.tensor([1, 7, 12, 25, 39])):
+        got = _emulated_tube(emulated_tube, x[idx], u[idx], tcfg)
+        for g, r in zip(got, full):
+            assert torch.equal(g.nan_to_num(), r[idx].nan_to_num())
+            assert torch.equal(g.isnan(), r[idx].isnan())
