@@ -29,7 +29,8 @@ printed):
      entry function, K1's lanes and shared memory per CTA, K2's stage lanes,
      threads and shared memory per CTA (a team of 9 threads per lane) and
      K3's lanes per stage, threads and shared memory per CTA at M = 256,
-     1024 and 2048
+     1024 and 2048, K4a's and K4b's lanes, threads and shared memory per CTA
+     (a warp per lane)
   2. K1 vs its plain PyTorch version on the card at B = 4096, one
      iteration from the initial state and one after 8 plain iterations:
      f64 |d| <= 1e-9 (1 + |ref|) with identical it/done; f32 from the
@@ -52,7 +53,9 @@ printed):
   5. K2 vs its plain version at L = B N = 81,920 stage lanes, on random
      tube-regime lanes and on the main path's own stage lanes: f64
      |d| <= 1e-10 (1 + |ref|); f32 max |d| Phi <= 2e-5, Mp <= 2e-6,
-     Qd <= 1e-6, Q1 <= 1e-6
+     Qd <= 1e-6, Q1 <= 1e-6; and with a gain other than the config's
+     (1.3 K plus a seeded perturbation) on the main path's stage lanes at
+     f64, the same 1e-10 bar
   6. K3 vs its plain version: f64, A and b within 1e-9 on every row, on
      generic random inputs at B = 256, M = 256 and at B = 64, M = 2048, and
      on the main path's own segments and clouds (B = 4096, M = 256); f32
@@ -82,7 +85,10 @@ printed):
      256 lanes; K5 on random well-conditioned blocks at B = 4096, N = 20:
      f64 within 1e-9 (1 + |ref|), f32 within 1e-4 (1 + |ref|), the f64
      kernel solution's KKT residuals within 1e-8; solve_lqr_batched
-     launching K5a and K5b once each
+     launching K5a and K5b once each; K4a and K4b after 8 plain PC
+     iterations, f32 and f64, on a permutation of the lanes and on 256
+     lanes launched alone, bit for bit equal to the same lanes of the full
+     launch
   10. slice 3 main path at f32: the predictor-corrector grid with phase
      3's checks, except that K4a launches = host-loop steps, K4b = twice
      that, no K1, and the solved fraction is printed, not barred; then
@@ -90,7 +96,9 @@ printed):
      predictor-corrector on phase 7's two workloads with phase 7's checks
      and the same launch and agreement bars
   11. slice 3 times: K4a, K4b, K5a and K5b ms per call against their plain
-     versions at B = 4096; the predictor-corrector grid's ms per call,
+     versions at B = 4096; K4a and K4b at B = 4096, 1024, 256 and 1 (the
+     PC grid's initial-state calls, their first lanes), each beside its
+     bound and the share of it; the predictor-corrector grid's ms per call,
      solves/s and mean iterations beside phase 4's monotone ones; the
      predictor-corrector step's ms per call and steps/s; nmpc_step at B = 1
      in DEFAULT_CONFIG with the predictor-corrector, p50 / p99 over 30 calls
@@ -423,17 +431,26 @@ def plain_routes():
         yield
 
 
-def tube_check(x, u, device):
-    """K2 vs plain on the stage lanes x (L, 9), u (L, 4) (numpy) at f64 and
-    f32.  Returns the f32 max |d| over outputs and a report."""
+def other_gain(seed=12):
+    """A feedback gain other than the config's: 1.3 K plus a seeded
+    perturbation, (4, 9) float64 (tests/test_torch_tube.py::_other_gain)."""
+    rng = np.random.default_rng(seed)
+    return 1.3 * np.asarray(DEFAULT_CONFIG.tube.K) + rng.normal(0, 0.05, (4, 9))
+
+
+def tube_check(x, u, device, K=None,
+               dtypes=(torch.float64, torch.float32)):
+    """K2 vs plain on the stage lanes x (L, 9), u (L, 4) (numpy) with the
+    gain K (None: the config's) at each dtype.  Returns the f32 max |d|
+    over outputs and a report."""
     cfg = DEFAULT_CONFIG
     f32_bounds = {"Qd": 1e-6, "Mp": 2e-6, "Phi": 2e-5, "Q1": 1e-6}
     worst32, msg = 0.0, []
-    for dtype in (torch.float64, torch.float32):
+    for dtype in dtypes:
         xt = torch.as_tensor(x, dtype=dtype, device=device)
         ut = torch.as_tensor(u, dtype=dtype, device=device)
-        ref = tube_kernel.tube_stage_reference(xt, ut, cfg.model, cfg.tube)
-        got = tube_kernel.tube_stage_lanes(xt, ut, cfg.model, cfg.tube)
+        ref = tube_kernel.tube_stage_reference(xt, ut, cfg.model, cfg.tube, K)
+        got = tube_kernel.tube_stage_lanes(xt, ut, cfg.model, cfg.tube, K)
         torch.cuda.synchronize()
         for name, g, r in zip(f32_bounds, got, ref):
             if not torch.isfinite(g).all():
@@ -760,6 +777,20 @@ def run_slice2(dev, card):
     Z = in64["mpc_output"][:, :N].reshape(B * N, 17).cpu().numpy()
     err2, msg = tube_check(Z[:, 8:17], Z[:, 0:4], dev)
     say(f"phase 5 K2 vs plain L={B * N}, the main path's stage lanes: {msg}")
+    K = torch.as_tensor(other_gain())
+    _, msg = tube_check(Z[:, 8:17], Z[:, 0:4], dev, K, (torch.float64,))
+    phi_cfg = tube_kernel.tube_stage_lanes(
+        torch.as_tensor(Z[:256, 8:17], device=dev),
+        torch.as_tensor(Z[:256, 0:4], device=dev), cfg.model, cfg.tube)[2]
+    phi_k = tube_kernel.tube_stage_lanes(
+        torch.as_tensor(Z[:256, 8:17], device=dev),
+        torch.as_tensor(Z[:256, 0:4], device=dev), cfg.model, cfg.tube, K)[2]
+    moved = (phi_k - phi_cfg).abs().max().item()
+    if not moved > 1e-3:
+        fail(f"K2 with an explicit gain: Phi moved by {moved:.3e} only")
+    say(f"phase 5 K2 vs plain L={B * N}, the main path's stage lanes, an "
+        f"explicit gain 1.3 K + N(0, 0.05): {msg}; Phi moved {moved:.3e} "
+        "from the config gain's")
 
     # ---- phase 6: K3 vs plain ---------------------------------------------
     for Bc, M in ((256, 256), (64, 2048)):
@@ -941,6 +972,39 @@ def hold_kernels(jobs, rel_tol, against_f64):
     return worst, "; ".join(report)
 
 
+def k4_lane_position(fa, sa, seed):
+    """K4a and K4b on a permutation of the lanes and on 256 lanes launched
+    alone give the same lanes of the full launch bit for bit (a lane's
+    result depends neither on its slot in the CTA nor on B)."""
+    full_f = lqr_kernel.lqr_factor_fused_lanes(*fa)
+    full_s = lqr_kernel.lqr_backsolve_fused_lanes(*sa)
+    B = fa[0].shape[-1]
+    gen = torch.Generator().manual_seed(seed)
+    perm = torch.randperm(B, generator=gen).to(fa[0].device)
+    part = torch.randperm(B, generator=gen)[:256].sort().values.to(
+        fa[0].device)
+
+    def cut(a, idx):
+        if isinstance(a, riccati.LQRFactor):
+            return riccati.LQRFactor(*(cut(t, idx) for t in a))
+        return a[..., idx].contiguous() if torch.is_tensor(a) else a
+
+    for label, idx in (("a permutation of the lanes", perm),
+                       ("256 lanes alone", part)):
+        got_f = lqr_kernel.lqr_factor_fused_lanes(*(cut(a, idx) for a in fa))
+        got_s = lqr_kernel.lqr_backsolve_fused_lanes(*(cut(a, idx)
+                                                       for a in sa))
+        torch.cuda.synchronize()
+        for name, g, r in zip(got_f._fields + got_s._fields,
+                              (*got_f, *got_s), (*full_f, *full_s)):
+            r = r[..., idx]
+            if not (torch.equal(g.isnan(), r.isnan())
+                    and torch.equal(g.nan_to_num(), r.nan_to_num())):
+                fail(f"K4 on {label}: {name} differs from the full launch")
+    return (f"bit-identical on a permutation of the {B} lanes and on "
+            f"{part.numel()} lanes launched alone")
+
+
 def check_k4(dev, cfg_pc):
     """Phase 9, K4: the PC grid's own K4 calls (bench grid of seed 1, B =
     4096) from the initial IPM state and after 8 plain PC iterations, at f64
@@ -961,11 +1025,13 @@ def check_k4(dev, cfg_pc):
         for _ in range(8):
             st = ipm_lanes.lane_step(st, params, cfg_pc.model, cfg_pc.solver,
                                      int(MAX_ITERS), plain=True)
-        w8, rep8 = hold_kernels(k4_jobs(*record_k4(st, params, cfg_pc)),
-                                rel_tol, not f64)
+        fa8, sa8 = record_k4(st, params, cfg_pc)
+        w8, rep8 = hold_kernels(k4_jobs(fa8, sa8), rel_tol, not f64)
         say(f"phase 9 K4 vs plain {str(dtype)[6:]} B={B} nh=30, the PC grid's "
             f"calls: initial state: {rep0}; after 8 plain PC iterations: "
             f"{rep8} (bar {bar})")
+        say(f"phase 9 K4 lane position {str(dtype)[6:]}, after 8 plain PC "
+            f"iterations: {k4_lane_position(fa8, sa8[0], 9)}")
         if f64:
             nh, lanes = 18, 256
 
@@ -1115,6 +1181,32 @@ def step_times(cfg, dev, drift, label, card, phase):
         f"solved {np.mean(solved_t):.6f}, mean iters {np.mean(iters):.3f}")
 
 
+def time_k4(calls, flops, card):
+    """Phase 11, K4a and K4b at B = 4096, 1024, 256 and 1: the first lanes
+    of the PC grid's initial-state calls, ms per call (CUDA events, twice)
+    beside the bound of those lanes' bytes and operations."""
+    def cut(a, Bw):
+        if isinstance(a, riccati.LQRFactor):
+            return riccati.LQRFactor(*(cut(t, Bw) for t in a))
+        return a[..., :Bw].contiguous() if torch.is_tensor(a) else a
+
+    for name in ("lqr_factor_fused", "lqr_backsolve_fused"):
+        kernel = getattr(lqr_kernel, name + "_lanes")
+        plain = getattr(lqr_kernel, name + "_reference")
+        rows = []
+        for Bw in (4096, 1024, 256, 1):
+            a = [cut(t, Bw) for t in calls[name]]
+            lanes = next(t for t in a if torch.is_tensor(t)).shape[-1]
+            t1 = cuda_ms(lambda: kernel(*a), 20)
+            t2 = cuda_ms(lambda: kernel(*a), 20)
+            bms, by = bound(tensor_bytes(a, plain(*a)), lanes * flops[name])
+            rows.append(f"B={lanes} {t1:.4f} ms (repeat {t2:.4f}), bound "
+                        f"{bms:.4f} ms by {by}, {100 * bms / min(t1, t2):.2f}%"
+                        " of the bound")
+        say(f"phase 11 {LQR_KERNELS[name][0]} f32 N={LQR_N} [{card}]: "
+            + "; ".join(rows))
+
+
 def run_slice3(dev, card, mono_grid):
     """Phases 9-11; mono_grid = phase 4's (ms per call, mean iterations).
     Returns the {"kernels"} entries of K4a, K4b, K5a and K5b."""
@@ -1163,6 +1255,7 @@ def run_slice3(dev, card, mono_grid):
         f"bound {bounds[n][0]:.4f} ms by {bounds[n][1]}"
         for n in calls) + " (K4: the PC grid's initial-state calls, K5: the "
         "random blocks)")
+    time_k4(calls, flops, card)
     lat_ms, iters = grid_times(cfg_pc, dev)
     mono_ms, mono_iters = mono_grid
     Bg = workloads.N_GOALS * workloads.N_FORCES * len(workloads.HALVES)
@@ -1324,6 +1417,15 @@ def build_phase():
                        f"{threads} threads, {smem} B of shared memory")
     say(f"phase 1 K3 (corridor.cu) per CTA (one scenario, N = {N}): "
         + "; ".join(geo) + " (registers: the corridor.cu line above)")
+    geo = []
+    for label, backsolve in (("K4a", False), ("K4b", True)):
+        for dtype in (torch.float32, torch.float64):
+            g = lqr_kernel.launch_geometry(dtype, N, backsolve)
+            geo.append(f"{label} {str(dtype)[6:]} {g.lanes} lanes x "
+                       f"{g.smem // g.lanes} B = {g.smem} B of shared memory, "
+                       f"{g.threads} threads")
+    say(f"phase 1 K4 (lqr.cu, a warp per lane) per CTA at N = {N}: "
+        + "; ".join(geo) + " (registers and spills: the lqr.cu line above)")
 
 
 def main() -> int:

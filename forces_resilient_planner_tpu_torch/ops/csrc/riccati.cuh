@@ -1,8 +1,7 @@
-// Device code of the Riccati kernels (lqr.cu, K4 and K5): lane-minor views,
-// the packed 4x4 Cholesky factor and solve, the barrier-weighted stage QP
-// assembly and the augmented dynamics of the 13-wide Riccati state
-// [x(9), u_prev(4)].  The whole-iteration kernel (ipm_iteration.cu, K1)
-// shares its dimensions.
+// Device code of the Riccati kernels (lqr.cu, K4 and K5): the dimensions of
+// the 13-wide Riccati state [x(9), u_prev(4)], lane-minor views and the
+// packed 4x4 Cholesky factor and solve.  The whole-iteration kernel
+// (ipm_iteration.cu, K1) shares its dimensions.
 #pragma once
 
 #include "common.cuh"
@@ -70,58 +69,6 @@ __device__ void chol4_solve(const T* f, const T* Bm, T* X) {
     T x1 = (y1 - l21 * x2 - l31 * x3) / l11;
     T x0 = (y0 - l10 * x1 - l20 * x2 - l30 * x3) / l00;
     X[k] = x0; X[K + k] = x1; X[2 * K + k] = x2; X[3 * K + k] = x3;
-  }
-}
-
-// barrier-weighted stage QP blocks Q (13x13), R (4x4), S (4x13)
-// (ipm_lanes._assemble_qp_blocks, stage i).  sig holds the stage's 34 + nh
-// inequality sigmas (17 lb, 17 ub, nh corridor rows), Ai its nh corridor
-// rows (3 values each); c supplies reg, rmax2 and nh >= 1.
-template <typename T, typename C>
-__device__ __noinline__ void assemble_stage(
-    const T* sig, const T* Ai, T wwp, T win, T wrt, T wvl, T wup,
-    const C& c, T* Q, T* R, T* S) {
-  const int nh = c.nh;
-  for (int k = 0; k < NXB * NXB; ++k) Q[k] = T(0);
-  for (int k = 0; k < NU * NU; ++k) R[k] = T(0);
-  for (int k = 0; k < NU * NXB; ++k) S[k] = T(0);
-  for (int k = 0; k < NU; ++k) {
-    T r = T(2) * wrt + (sig[k] + sig[17 + k]) + c.reg;
-    if (k < 3) r += T(2) * win / c.rmax2;
-    R[k * NU + k] = r;
-    T up = T(2) * wrt + (sig[4 + k] + sig[21 + k]) + c.reg;
-    if (k < 3) up += T(2) * wup;
-    Q[(9 + k) * NXB + 9 + k] = up;
-    S[k * NXB + 9 + k] = -T(2) * wrt;
-  }
-  for (int k = 0; k < NX; ++k) {
-    T xd = (sig[8 + k] + sig[25 + k]) + c.reg;
-    if (k < 3) xd += T(2) * wwp;
-    else if (k < 6) xd += T(2) * wvl;
-    else if (k == 8) xd += T(24) * wwp;
-    Q[k * NXB + k] = xd;
-  }
-  // corridor 3x3 position block: sum_k A_kj sc_k A_kl, summed for l >= j
-  // and mirrored, in the plain version's order (ops/lqr_kernel.py::
-  // _assemble_qp_blocks), so that with lqr.cu's -fmad=false it matches
-  // that version bit for bit.
-  for (int j = 0; j < 3; ++j)
-    for (int l = j; l < 3; ++l) {
-      T acc = (Ai[j] * sig[34]) * Ai[l];
-      for (int k = 1; k < nh; ++k) acc += (Ai[3 * k + j] * sig[34 + k]) * Ai[3 * k + l];
-      Q[j * NXB + l] += acc;
-      if (l != j) Q[l * NXB + j] += acc;
-    }
-}
-
-// augmented dynamics Abar = [[Ax, 0], [0, 0]] (13x13), Bbar = [[Bx], [I4]]
-template <typename T>
-__device__ void aug_dyn(const T* Ax, const T* Bx, T* Abar, T* Bbar) {
-  for (int r = 0; r < NXB; ++r) {
-    for (int col = 0; col < NXB; ++col)
-      Abar[r * NXB + col] = (r < NX && col < NX) ? Ax[r * NX + col] : T(0);
-    for (int k = 0; k < NU; ++k)
-      Bbar[r * NU + k] = r < NX ? Bx[r * NU + k] : (r - NX == k ? T(1) : T(0));
   }
 }
 

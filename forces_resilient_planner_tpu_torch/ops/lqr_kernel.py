@@ -13,9 +13,12 @@ K4 assembles the barrier-weighted stage QP blocks and the augmented
 dynamics [[Ax, 0], [0, 0]], [[Bx], [I4]] itself, from the stage weight
 tables, the barrier sigmas, the corridor rows and the RK2 Jacobians:
 solver/ipm_lanes.py::lane_step runs it where K1 is off (the Mehrotra
-predictor-corrector, corridors of other than 30 rows).  K5 reads
-pre-assembled Q/R/S/A/B blocks; solve_lqr_lanes joins K5a and K5b behind
-solver/riccati.py::solve_lqr_batched.
+predictor-corrector, corridors of other than 30 rows).  K4 runs a warp per
+lane and up to MAX_LANES lanes per CTA, each lane's working set in shared
+memory (csrc/lqr.cu's header says how); `launch_geometry` gives the lanes,
+threads and shared memory per CTA for a dtype and horizon.  K5 reads
+pre-assembled Q/R/S/A/B blocks, a thread per lane; solve_lqr_lanes joins
+K5a and K5b behind solver/riccati.py::solve_lqr_batched.
 
 Route by device: a CPU tensor runs the plain version beside each wrapper
 (`*_reference`).  Any other tensor is checked (shapes, float32 or float64,
@@ -25,6 +28,7 @@ lies on CUDA, or raises.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -39,6 +43,9 @@ from forces_resilient_planner_tpu_torch.utils.lanes import sum_dim
 SOURCE = "lqr.cu"
 NX, NXB, NU = 9, 13, 4
 NH = 30  # the most corridor rows per stage K4 takes
+WARP = 32               # K4: threads per lane
+MAX_LANES = 8           # K4: lanes per CTA
+SMEM_PER_CTA = 232_448  # shared memory one CTA may use on sm_90 (bytes)
 
 # kernel launches per kernel, over all calls in this process
 LAUNCHES = dict.fromkeys(
@@ -46,7 +53,7 @@ LAUNCHES = dict.fromkeys(
     0,
 )
 
-# backsolve scratch (each lane's p and k stacks) per (device, dtype, N, B)
+# K5b's scratch (each lane's p and k stacks) per (device, dtype, N, B)
 _scratch: dict = {}
 
 _SUFFIX = {torch.float32: ("f32", ctypes.c_float),
@@ -56,19 +63,75 @@ _SUFFIX = {torch.float32: ("f32", ctypes.c_float),
 def _bind(lib):
     lib.lqr_backsolve_scratch_per_lane.argtypes = [ctypes.c_int]
     lib.lqr_backsolve_scratch_per_lane.restype = ctypes.c_size_t
+    lib.lqr_fused_lane_elements.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.lqr_fused_lane_elements.restype = ctypes.c_int
     i, p = ctypes.c_int, ctypes.c_void_p
     for suffix, ctype in _SUFFIX.values():
-        # (N, B[, nh, reg, rmax2]), inputs, outputs[, scratch], stream
+        # (N, B[, nh, reg, rmax2][, lanes_log2, stride]), inputs, outputs
+        # [, scratch], stream
         argtypes = {
-            "lqr_factor_fused": [i, i, i, ctype, ctype] + [p] * 9 + [p] * 5,
+            "lqr_factor_fused": [i, i, i, ctype, ctype, i, i, p, p],
             "lqr_factor": [i, i] + [p] * 5 + [p] * 5,
-            "lqr_backsolve_fused": [i, i] + [p] * 11 + [p] * 4 + [p],
+            "lqr_backsolve_fused": [i, i, i, i, p, p],
             "lqr_backsolve": [i, i] + [p] * 11 + [p] * 4 + [p],
         }
         for name, args in argtypes.items():
             fn = getattr(lib, f"{name}_{suffix}")
             fn.argtypes = args + [p]
             fn.restype = ctypes.c_int
+
+
+# ---------------------------------------------------------------------------
+# K4's launch geometry (csrc/lqr.cu: fac_layout, solve_layout)
+# ---------------------------------------------------------------------------
+
+class Geometry(NamedTuple):
+    lanes: int    # lanes per CTA, a power of two
+    threads: int  # threads per CTA: a warp per lane
+    smem: int     # bytes of shared memory per CTA
+    stride: int   # values of the dtype between two lanes' memory
+
+
+def lane_elements(N: int, backsolve: bool = False) -> int:
+    """Values of one lane's shared-memory layout at horizon N.
+    K4a (csrc/lqr.cu::fac_layout): every stage's 24 QP values, two stages'
+    G = [Abar | Bbar] (13 x 17), two P (P_{i+1}; Qh, then P_i), [AtP; BtP]
+    and a zero row (18 x 13), Sh, Rh, two K, two packed factors of Rh, RiS,
+    cRt.  K4b (solve_layout): the p / nu and k stacks, three dxb and two
+    du, two stage blocks (P, Ax, Bx, c, qx, qu, K, cRh), Pc, qxh / quh,
+    RiS and R^{-1} qu."""
+    nn, g = NXB * NXB, NXB * (NXB + NU)
+    if backsolve:
+        block = nn + NX * NX + NX * NU + NXB + NXB + NU + NU * NXB + 10
+        return (N * NXB + (N - 1) * NU + 3 * NXB + 2 * NU + 2 * block
+                + NXB + NXB + NU + NU * NXB + NU)
+    return (N * (NXB + 6 + NU + 1) + 2 * g + 2 * nn + 18 * NXB
+            + NU * NXB + NU * NU + 2 * NU * NXB + 2 * 10 + NU * NXB + 10)
+
+
+def launch_geometry(dtype, N: int, backsolve: bool = False,
+                    max_lanes: int = MAX_LANES) -> Geometry:
+    """K4a's (or, with backsolve, K4b's) geometry at `dtype` and horizon N:
+    the most lanes per CTA, a power of two up to max_lanes, whose memory fits
+    in SMEM_PER_CTA.  The stride pads a lane to a multiple of 32 values plus
+    32 / lanes, so that the CTA's copies, which give a warp 32 / lanes rows
+    of every lane, spread over the shared-memory banks."""
+    if N < 2:
+        raise ValueError(f"need N >= 2 stages, got {N}")
+    if dtype not in _SUFFIX:
+        raise ValueError(f"the CUDA kernels take float32 or float64, not {dtype}")
+    size = torch.empty((), dtype=dtype).element_size()
+    elements = -(-lane_elements(N, backsolve) // 32) * 32
+    lanes = max_lanes
+    while lanes > 1 and lanes * (elements + WARP // lanes) * size > SMEM_PER_CTA:
+        lanes //= 2
+    stride = elements + WARP // lanes
+    if stride * size > SMEM_PER_CTA:
+        raise ValueError(
+            f"one lane at N = {N} needs {stride * size} B of shared memory, "
+            f"more than a CTA's {SMEM_PER_CTA} B at {dtype}"
+        )
+    return Geometry(lanes, WARP * lanes, lanes * stride * size, stride)
 
 
 # ---------------------------------------------------------------------------
@@ -202,15 +265,8 @@ def _factor_shapes(N: int, B: int):
             (10, B))
 
 
-def _factor(name, like, N, B, lib, *head):
-    """Launch a factor kernel: head = its arguments before the outputs."""
-    fac = LQRFactor(*(like.new_empty(s) for s in _factor_shapes(N, B)))
-    _launch(lib, name, like, *head, *(t.data_ptr() for t in fac))
-    return fac
-
-
-def _backsolve(name, fac, d0, d1, c, qx, qu, dx0, d_shapes):
-    """Launch a backsolve kernel against fac with the dynamics (d0, d1)."""
+def _check_backsolve(fac, d0, d1, c, qx, qu, dx0, d_shapes):
+    """The device route's checks of a backsolve's arguments; the library."""
     N, B = qx.shape[0], qx.shape[-1]
     _horizon(N, B)
     named = [("qx", qx, (N, NXB, B))]
@@ -219,16 +275,46 @@ def _backsolve(name, fac, d0, d1, c, qx, qu, dx0, d_shapes):
     named += [("dynamics[0]", d0, d_shapes[0]), ("dynamics[1]", d1, d_shapes[1]),
               ("c", c, (N - 1, NXB, B)), ("qu", qu, (N, NU, B)),
               ("dx0", dx0, (NX, B))]
-    lib = _device_route(named)
-    key = (qx.device, qx.dtype, N, B)
-    if key not in _scratch:
-        _scratch[key] = qx.new_empty(lib.lqr_backsolve_scratch_per_lane(N) * B)
-    sol = LQRSolution(qx.new_empty((N, NXB, B)), qx.new_empty((N, NU, B)),
-                      qx.new_empty((N, NXB, B)), qx.new_empty((NU, B)))
-    _launch(lib, name, qx, N, B,
-            *(t.data_ptr() for t in (*fac, d0, d1, c, qx, qu, dx0, *sol)),
-            _scratch[key].data_ptr())
-    return sol
+    return _device_route(named)
+
+
+def _solution_like(qx):
+    N, B = qx.shape[0], qx.shape[-1]
+    return LQRSolution(qx.new_empty((N, NXB, B)), qx.new_empty((N, NU, B)),
+                       qx.new_empty((N, NXB, B)), qx.new_empty((NU, B)))
+
+
+def launch_fused(lib, name: str, ins, outs, stream, scalars=(),
+                 max_lanes: int = MAX_LANES):
+    """One launch of K4a (name "lqr_factor_fused": ins the nine inputs of
+    lqr_factor_fused_lanes, outs the LQRFactor fields, scalars (nh, reg,
+    rmax2)) or K4b ("lqr_backsolve_fused": ins the factor's five fields, Ax,
+    Bx, c, qx, qu, dx0, outs the LQRSolution fields) from `lib` (the nvcc
+    build, or the CPU build of the tests) on checked, contiguous tensors, on
+    `stream`; raises when the launch fails."""
+    backsolve = name == "lqr_backsolve_fused"
+    like = ins[0]
+    N, B = (ins[8].shape[0], ins[8].shape[-1]) if backsolve else ins[0].shape
+    geo = launch_geometry(like.dtype, N, backsolve, max_lanes)
+    if lib.lqr_fused_lane_elements(N, int(backsolve)) > geo.stride:
+        raise RuntimeError("csrc/lqr.cu's lane layout outgrew lane_elements()")
+    rc = getattr(lib, f"{name}_{_SUFFIX[like.dtype][0]}")(
+        N, B, *scalars, geo.lanes.bit_length() - 1, geo.stride,
+        (ctypes.c_void_p * len(ins))(*(t.data_ptr() for t in ins)),
+        (ctypes.c_void_p * len(outs))(*(t.data_ptr() for t in outs)),
+        stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+
+
+def _launch_fused(lib, name, ins, outs, scalars=()):
+    like = ins[0]
+    with torch.cuda.device(like.device):
+        launch_fused(lib, name, ins, outs,
+                     torch.cuda.current_stream(like.device).cuda_stream,
+                     scalars)
+    LAUNCHES[name] += 1
 
 
 def lqr_factor_fused_lanes(w_wp, w_input, w_rate, w_vel, w_uprev0, sigma,
@@ -255,8 +341,10 @@ def lqr_factor_fused_lanes(w_wp, w_input, w_rate, w_vel, w_uprev0, sigma,
     named += [("sigma", sigma, (N, 34 + nh, B)), ("Acor", Acor, (N, nh, 3, B)),
               ("Ax", Ax, (N - 1, NX, NX, B)), ("Bx", Bx, (N - 1, NX, NU, B))]
     lib = _device_route(named)
-    return _factor("lqr_factor_fused", sigma, N, B, lib, N, B, nh, reg, rmax2,
-                   *(t.data_ptr() for _, t, _ in named))
+    fac = LQRFactor(*(sigma.new_empty(s) for s in _factor_shapes(N, B)))
+    _launch_fused(lib, "lqr_factor_fused", [t for _, t, _ in named], fac,
+                  (nh, reg, rmax2))
+    return fac
 
 
 def lqr_backsolve_fused_lanes(fac: LQRFactor, Ax, Bx, c, qx, qu,
@@ -267,8 +355,12 @@ def lqr_backsolve_fused_lanes(fac: LQRFactor, Ax, Bx, c, qx, qu,
     if qx.device.type == "cpu":
         return lqr_backsolve_fused_reference(fac, Ax, Bx, c, qx, qu, dx0)
     N, B = qx.shape[0], qx.shape[-1]
-    return _backsolve("lqr_backsolve_fused", fac, Ax, Bx, c, qx, qu, dx0,
-                      ((N - 1, NX, NX, B), (N - 1, NX, NU, B)))
+    lib = _check_backsolve(fac, Ax, Bx, c, qx, qu, dx0,
+                           ((N - 1, NX, NX, B), (N - 1, NX, NU, B)))
+    sol = _solution_like(qx)
+    _launch_fused(lib, "lqr_backsolve_fused", [*fac, Ax, Bx, c, qx, qu, dx0],
+                  sol)
+    return sol
 
 
 def lqr_factor_lanes(Q, R, S, A, B) -> LQRFactor:
@@ -282,8 +374,10 @@ def lqr_factor_lanes(Q, R, S, A, B) -> LQRFactor:
              ("S", S, (N, NU, NXB, Bn)), ("A", A, (N - 1, NXB, NXB, Bn)),
              ("B", B, (N - 1, NXB, NU, Bn))]
     lib = _device_route(named)
-    return _factor("lqr_factor", Q, N, Bn, lib, N, Bn,
-                   *(t.data_ptr() for _, t, _ in named))
+    fac = LQRFactor(*(Q.new_empty(s) for s in _factor_shapes(N, Bn)))
+    _launch(lib, "lqr_factor", Q, N, Bn,
+            *(t.data_ptr() for _, t, _ in named), *(t.data_ptr() for t in fac))
+    return fac
 
 
 def lqr_backsolve_lanes(fac: LQRFactor, A, B, c, qx, qu, dx0) -> LQRSolution:
@@ -292,8 +386,16 @@ def lqr_backsolve_lanes(fac: LQRFactor, A, B, c, qx, qu, dx0) -> LQRSolution:
     if qx.device.type == "cpu":
         return lqr_backsolve_reference(fac, A, B, c, qx, qu, dx0)
     N, Bn = qx.shape[0], qx.shape[-1]
-    return _backsolve("lqr_backsolve", fac, A, B, c, qx, qu, dx0,
-                      ((N - 1, NXB, NXB, Bn), (N - 1, NXB, NU, Bn)))
+    lib = _check_backsolve(fac, A, B, c, qx, qu, dx0,
+                           ((N - 1, NXB, NXB, Bn), (N - 1, NXB, NU, Bn)))
+    key = (qx.device, qx.dtype, N, Bn)
+    if key not in _scratch:
+        _scratch[key] = qx.new_empty(lib.lqr_backsolve_scratch_per_lane(N) * Bn)
+    sol = _solution_like(qx)
+    _launch(lib, "lqr_backsolve", qx, N, Bn,
+            *(t.data_ptr() for t in (*fac, A, B, c, qx, qu, dx0, *sol)),
+            _scratch[key].data_ptr())
+    return sol
 
 
 def solve_lqr_lanes(Q, R, S, qx, qu, A, B, c, dx0) -> LQRSolution:

@@ -68,13 +68,24 @@ def launch_geometry(lib, dtype):
     return lanes.value, threads.value, smem.value
 
 
-def launch(lib, x, u, mcfg: ModelConfig, tcfg: TubeConfig, stream):
+def _gain(tcfg: TubeConfig, K):
+    """The feedback gain as a (4, 9) float64 CPU tensor: K as given, or the
+    config gain tcfg.K when K is None."""
+    Kt = torch.as_tensor(tcfg.K if K is None else K,
+                         dtype=torch.float64).detach().cpu()
+    if tuple(Kt.shape) != (4, NX):
+        raise ValueError(f"K: shape {tuple(Kt.shape)}, expected (4, 9)")
+    return Kt
+
+
+def launch(lib, x, u, mcfg: ModelConfig, tcfg: TubeConfig, stream, K=None):
     """One launch of the kernel in `lib` (the nvcc build, or the CPU build
-    of the tests) on checked, contiguous x (L, 9), u (L, 4); returns (Qd,
-    Mp, Phi, Q1), allocated like x.  Raises when the launch fails."""
+    of the tests) on checked, contiguous x (L, 9), u (L, 4) with the gain K
+    (None: tcfg.K) in the kernel's constants; returns (Qd, Mp, Phi, Q1),
+    allocated like x.  Raises when the launch fails."""
     L = x.shape[0]
     entry, ctype = _ENTRY[x.dtype]
-    Kt = torch.as_tensor(tcfg.K, dtype=torch.float64)
+    Kt = _gain(tcfg, K)
     consts = _STRUCTS[x.dtype](
         mass=mcfg.mass, drag=mcfg.drag_coeff, dt=mcfg.dt,
         noise=tcfg.ext_noise_bound, ego_r2=tcfg.ego_r ** 2,
@@ -91,11 +102,12 @@ def launch(lib, x, u, mcfg: ModelConfig, tcfg: TubeConfig, stream):
 
 
 def tube_stage_reference(x: torch.Tensor, u: torch.Tensor, mcfg: ModelConfig,
-                         tcfg: TubeConfig):
+                         tcfg: TubeConfig, K=None):
     """Plain PyTorch version: the per-stage branch of propagate_tubes_batch
-    with the config gain tcfg.K.
+    with the gain K (None: the config gain tcfg.K).
     x (L, 9), u (L, 4) -> (Qd, Mp, Phi (L, 9, 9), Q1 (L, 3, 3))."""
-    Kt = torch.as_tensor(tcfg.K, dtype=x.dtype, device=x.device)
+    Kt = torch.as_tensor(tcfg.K if K is None else K, dtype=x.dtype,
+                         device=x.device)
     w = torch.full((3,), tcfg.ext_noise_bound, dtype=x.dtype, device=x.device)
     Phi = lyapunov.closed_loop_phi(x, u, Kt, mcfg)
     Qd, Mp = lyapunov.channel_Qd_fast(Phi, mcfg.dt, w)
@@ -149,12 +161,13 @@ def tube_stage_operations(Phi: torch.Tensor, dt: float, n_terms: int) -> int:
 
 
 def tube_stage_lanes(x: torch.Tensor, u: torch.Tensor, mcfg: ModelConfig,
-                     tcfg: TubeConfig):
-    """Per-stage tube math over L stage lanes (config gain tcfg.K).
+                     tcfg: TubeConfig, K=None):
+    """Per-stage tube math over L stage lanes with the gain K (a (4, 9)
+    tensor or array; None: the config gain tcfg.K).
     Returns (Qd (L, 9, 9), Mp (L, 9, 9), Phi (L, 9, 9), Q1 (L, 3, 3))."""
     global LAUNCHES
     if x.device.type == "cpu":
-        return tube_stage_reference(x, u, mcfg, tcfg)
+        return tube_stage_reference(x, u, mcfg, tcfg, K)
     if x.device.type != "cuda":
         raise ValueError(f"no route for tensors on {x.device}")
     if x.dtype not in _ENTRY:
@@ -168,12 +181,10 @@ def tube_stage_lanes(x: torch.Tensor, u: torch.Tensor, mcfg: ModelConfig,
             raise ValueError(f"{name}: the kernel takes contiguous tensors only")
     if L == 0:
         raise ValueError("need L >= 1 stage lanes")
-    Kt = torch.as_tensor(tcfg.K, dtype=torch.float64)
-    if tuple(Kt.shape) != (4, NX):
-        raise ValueError(f"tcfg.K: shape {tuple(Kt.shape)}, expected (4, 9)")
+    Kt = _gain(tcfg, K)
     lib = _build.load(SOURCE, _bind)
     with torch.cuda.device(x.device):
         outs = launch(lib, x, u, mcfg, tcfg,
-                      torch.cuda.current_stream(x.device).cuda_stream)
+                      torch.cuda.current_stream(x.device).cuda_stream, Kt)
     LAUNCHES += 1
     return outs

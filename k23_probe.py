@@ -1,7 +1,8 @@
 """Time the tube kernel (K2) and the corridor kernel (K3) on the card through
-their public wrappers, and optionally the end-to-end paths around them.
+their public wrappers, optionally the Riccati kernels K4a and K4b of the
+predictor-corrector, and optionally the end-to-end paths around them.
 
-    python3 k23_probe.py [--reps R] [--m M [M ...]] [--k3-split] [--e2e]
+    python3 k23_probe.py [--reps R] [--m M [M ...]] [--k3-split] [--k4] [--e2e]
     python3 k23_probe.py --against DIR --order PCCP [the options above]
 
 Run from the root of a checkout; needs an NVIDIA GPU.  One run prints one
@@ -12,14 +13,18 @@ step's f32 inputs, chip_smoke.step_inputs) and, for each M of --m (default
 generic case); each time is CUDA events over R calls after a warm-up,
 taken twice, beside the f32 max |kernel - plain| on the same inputs.
 --k3-split adds K3's time at the first M with no peel rows
-(max_obs_planes = 0) and with every obstacle masked out.  --e2e adds chip_smoke.py's timings of
-nmpc_step_batched (easy and drifted), the bench grid and nmpc_step at
-B = 1.
+(max_obs_planes = 0) and with every obstacle masked out.  --k4 adds K4a's and
+K4b's times on the predictor-corrector grid's own initial-state calls
+(chip_smoke.record_k4: the bench grid of seed 1, B = 4096, f32) at B = 4096,
+1024, 256 and 1, each beside its f32 max |kernel - plain|.  --e2e adds
+chip_smoke.py's timings of nmpc_step_batched (easy and drifted), the bench
+grid and nmpc_step at B = 1, and with --k4 the predictor-corrector grid.
 
 --root DIR imports the port and chip_smoke.py from the checkout at DIR (for
 example an earlier commit unpacked with `git archive`): the probe calls only
 the kernels' wrappers and plain versions and chip_smoke.py helpers that
-every version of the port since the full step has, so it times either.
+every version of the port since the full step (--k4: since the
+predictor-corrector) has, so it times either.
 --against DIR runs the probe once per letter of --order, each in a fresh
 process: C this checkout, P the one at DIR.  Compare two versions only
 within one such call, in turns.
@@ -45,6 +50,7 @@ def probe(args) -> None:
     from forces_resilient_planner_tpu_torch.engine import workloads
     from forces_resilient_planner_tpu_torch.ops import (
         corridor_kernel,
+        lqr_kernel,
         tube_kernel,
     )
 
@@ -92,6 +98,28 @@ def probe(args) -> None:
         out[f"K3 B=64 M={M} random"] = k3(
             [torch.as_tensor(a, dtype=f32, device=dev) for a in rnd[:3]]
             + [torch.as_tensor(rnd[3], device=dev)])
+
+    cfg_pc = chip_smoke.with_pc(workloads.bench_config())
+    if args.k4:
+        state, params = chip_smoke.bench_lanes(cfg_pc, 1, f32, dev)
+        fa, sa = chip_smoke.record_k4(chip_smoke.lane_state(state), params,
+                                      cfg_pc)
+        del state, params
+
+        def cut(a, Bw):
+            if isinstance(a, tuple):
+                return type(a)(*(cut(t, Bw) for t in a))
+            return a[..., :Bw].contiguous() if torch.is_tensor(a) else a
+
+        for Bw in (4096, 1024, 256, 1):
+            out[f"K4a B={Bw}"] = timed(
+                lqr_kernel.lqr_factor_fused_lanes,
+                lqr_kernel.lqr_factor_fused_reference,
+                [cut(a, Bw) for a in fa])
+            out[f"K4b B={Bw}"] = timed(
+                lqr_kernel.lqr_backsolve_fused_lanes,
+                lqr_kernel.lqr_backsolve_fused_reference,
+                [cut(a, Bw) for a in sa[0]])
     print(json.dumps(out), flush=True)
 
     if args.e2e:
@@ -106,6 +134,11 @@ def probe(args) -> None:
               f"{iters:.3f}", flush=True)
         chip_smoke.one_robot_latency(cfg, "DEFAULT_CONFIG", chip_smoke.STEP_M,
                                      dev, card, phase="e2e")
+        if args.k4:
+            lat, iters = chip_smoke.grid_times(cfg_pc, dev)
+            print(f"e2e PC grid solve f32 [{card}]: {lat.mean():.2f} ms/call "
+                  f"(min {lat.min():.2f}, max {lat.max():.2f}), mean iters "
+                  f"{iters:.3f}", flush=True)
 
 
 def main() -> int:
@@ -113,6 +146,7 @@ def main() -> int:
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--m", type=int, nargs="+", default=[256])
     ap.add_argument("--k3-split", action="store_true")
+    ap.add_argument("--k4", action="store_true")
     ap.add_argument("--e2e", action="store_true")
     ap.add_argument("--root", default="")
     ap.add_argument("--against", default="")

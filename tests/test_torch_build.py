@@ -35,6 +35,7 @@ def _run(code_or_args, timeout=300):
     "forces_resilient_planner_tpu_torch.solver.riccati",
     "forces_resilient_planner_tpu_torch.solver.problems",
     "forces_resilient_planner_tpu_torch.tools.k1_phase_probe",
+    "forces_resilient_planner_tpu_torch.tools.k4_phase_probe",
 ])
 def test_port_imports_no_jax(module):
     """Neither jax nor any module of the JAX package is loaded."""
@@ -74,16 +75,17 @@ def test_chip_smoke_imports_no_bench_graft_entry_or_jax_package():
 
 
 def test_k23_probe_imports_no_jax_and_refuses_without_a_gpu():
-    """The root probe of K2 and K3 names no JAX module, and without a card it
-    stops before it times anything."""
+    """The root probe of K2, K3 and K4 names no JAX module, and without a
+    card it stops before it times anything, with or without --k4."""
     for name in _imported_modules(os.path.join(REPO, "k23_probe.py")):
         assert name.split(".")[0] not in (
             "jax", "forces_resilient_planner_tpu", "bench",
             "__graft_entry__"), name
-    proc = _run([sys.executable, "k23_probe.py", "--reps", "1"])
-    assert proc.returncode != 0
-    assert "needs an NVIDIA GPU" in proc.stderr
-    assert '"card"' not in proc.stdout
+    for flags in ([], ["--k4", "--e2e"]):
+        proc = _run([sys.executable, "k23_probe.py", "--reps", "1", *flags])
+        assert proc.returncode != 0
+        assert "needs an NVIDIA GPU" in proc.stderr
+        assert '"card"' not in proc.stdout
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):

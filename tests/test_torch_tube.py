@@ -3,7 +3,8 @@ against the JAX tube functions on 64 tube-regime linearization points (and
 a 3-robot horizon) drawn from a seed.  f64: closed_loop_phi, the channel
 Gramians, Qd, e^{Phi dt}, the DB square root, the Minkowski sum, the
 batched tubes and the tightening within 1e-10 (relative to 1 + |ref|);
-f32: Qd within 1e-6 of the JAX f32 XLA path.  The Taylor term counts are
+f32: Qd within 1e-6 of the JAX f32 XLA path; an explicit gain other than the
+config's through both tube entry points and through the kernel source.  The Taylor term counts are
 pinned: the port's equal the JAX package's and the ones csrc/tube_stage.cu
 is launched with.  The CUDA kernel is held against its plain version on
 the card (cuda-marked test, and chip_smoke.py)."""
@@ -135,27 +136,62 @@ def _horizons(B=3, seed=6):
     return Z
 
 
+def _other_gain(seed=12):
+    """A feedback gain other than the config's: 1.3 K plus a seeded
+    perturbation, (4, 9) float64."""
+    rng = np.random.default_rng(seed)
+    return 1.3 * np.asarray(C.tube.K) + rng.normal(0, 0.05, (4, 9))
+
+
 @pytest.fixture(scope="module")
 def jax_tubes():
+    """JAX tubes of a 3-robot horizon with the config gain (batched, and
+    robot 1 alone with K passed) and with _other_gain (both in one call)."""
     Z = _horizons()
     tb = jax.jit(lambda z: jl.propagate_tubes_batch(z, C.model, C.tube))(Z)
     K = jnp.asarray(C.tube.K, jnp.float64)
     t1 = jax.jit(lambda z: jl.propagate_tubes(z, C.model, C.tube, K))(Z[1])
-    return Z, tb, t1
+    Kx = jnp.asarray(_other_gain())
+    other = jax.jit(lambda z, k: (
+        jl.propagate_tubes_batch(z, C.model, C.tube, K=k),
+        jl.propagate_tubes(z[1], C.model, C.tube, k)))(Z, Kx)
+    return Z, tb, t1, other
 
 
 @pytest.mark.parametrize("field", ["E", "Q2", "Phi"])
 def test_propagate_tubes_batch_matches_jax(jax_tubes, field):
-    Z, tb, _ = jax_tubes
+    Z, tb, _, _ = jax_tubes
     got = tl.propagate_tubes_batch(torch.as_tensor(Z), C.model, C.tube)
     _close(getattr(got, field), getattr(tb, field))
 
 
 def test_propagate_tubes_single_robot_matches_jax(jax_tubes):
-    Z, _, t1 = jax_tubes
+    Z, _, t1, _ = jax_tubes
     got = tl.propagate_tubes(torch.as_tensor(Z[1]), C.model, C.tube)
     for field in ("E", "Q2", "Phi"):
         _close(getattr(got, field), getattr(t1, field))
+
+
+@pytest.mark.parametrize("as_tensor", [True, False])
+def test_propagate_tubes_with_an_explicit_gain_match_jax(jax_tubes, as_tensor):
+    """A gain other than tcfg.K, given as a tensor or as an array, reaches
+    the per-stage math of both entry points: batched and single robot match
+    JAX with the same gain, and differ from the config gain's tubes."""
+    Z, tb, _, (tb_k, t1_k) = jax_tubes
+    K = _other_gain()
+    K = torch.as_tensor(K) if as_tensor else K
+    Zt = torch.as_tensor(Z)
+    got = tl.propagate_tubes_batch(Zt, C.model, C.tube, K=K)
+    one = tl.propagate_tubes(Zt[1], C.model, C.tube, K)
+    for field in ("E", "Q2", "Phi"):
+        _close(getattr(got, field), getattr(tb_k, field))
+        _close(getattr(one, field), getattr(t1_k, field))
+        assert not np.allclose(getattr(got, field).numpy(),
+                               np.asarray(getattr(tb, field)))
+    none = tl.propagate_tubes_batch(Zt, C.model, C.tube)
+    given = tl.propagate_tubes_batch(Zt, C.model, C.tube, K=C.tube.K)
+    for g, r in zip(none, given):
+        assert torch.equal(g, r)
 
 
 def test_sqrtm_minkowski_and_tightening_match_jax():
@@ -281,6 +317,20 @@ def test_kernel_source_matches_plain_on_cpu(emulated_tube, dtype):
             assert (d <= 1e-10 * (1 + r.abs()[fin])).all(), d.max()
         else:
             assert d.max().item() <= bar, d.max()
+
+
+def test_kernel_source_honours_an_explicit_gain(emulated_tube):
+    """K2's source with a gain other than tcfg.K in its constants, at f64 on
+    the main path's kind of stage lanes: within 1e-10 (1 + |ref|) of the
+    plain version with the same gain, and unlike the config gain's Phi."""
+    x, u = (torch.as_tensor(a) for a in _points(24, seed=5))
+    K = torch.as_tensor(_other_gain())
+    got = tube_kernel.launch(emulated_tube, x, u, C.model, C.tube, None, K)
+    ref = tube_kernel.tube_stage_reference(x, u, C.model, C.tube, K)
+    for g, r in zip(got, ref):
+        assert ((g - r).abs() <= 1e-10 * (1 + r.abs())).all()
+    phi_cfg = tube_kernel.tube_stage_reference(x, u, C.model, C.tube)[2]
+    assert (got[2] - phi_cfg).abs().max() > 1e-3
 
 
 def test_kernel_source_lane_results_do_not_depend_on_their_slot(
