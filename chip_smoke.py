@@ -29,8 +29,8 @@ printed):
      entry function, K1's lanes and shared memory per CTA, K2's stage lanes,
      threads and shared memory per CTA (a team of 9 threads per lane) and
      K3's lanes per stage, threads and shared memory per CTA at M = 256,
-     1024 and 2048, K4a's and K4b's lanes, threads and shared memory per CTA
-     (a warp per lane)
+     1024 and 2048, K4a's, K4b's, K5a's and K5b's lanes, threads and shared
+     memory per CTA (a warp per lane)
   2. K1 vs its plain PyTorch version on the card at B = 4096, one
      iteration from the initial state and one after 8 plain iterations:
      f64 |d| <= 1e-9 (1 + |ref|) with identical it/done; f32 from the
@@ -82,13 +82,17 @@ printed):
      iterations: f64 |d| <= 1e-9 (1 + |ref|) on every factor and backsolve
      output; f32 held against the plain version at f64, the kernel's error
      within 1.25x the plain f32 one's (+1e-3); K4 at f64 with nh = 18 on
-     256 lanes; K5 on random well-conditioned blocks at B = 4096, N = 20:
+     256 lanes; K4a and K4b after 8 plain PC iterations, f32 and f64, on
+     a permutation of the lanes and on 256 lanes launched alone, bit for
+     bit equal to the same lanes of the full launch; K5 on random
+     well-conditioned blocks at B = 4096, N = 20 and on the PC grid's own
+     blocks (its initial-state K4 calls, the stage QP and the augmented
+     dynamics assembled by the plain _assemble_qp_blocks / _aug_dynamics):
      f64 within 1e-9 (1 + |ref|), f32 within 1e-4 (1 + |ref|), the f64
-     kernel solution's KKT residuals within 1e-8; solve_lqr_batched
-     launching K5a and K5b once each; K4a and K4b after 8 plain PC
-     iterations, f32 and f64, on a permutation of the lanes and on 256
-     lanes launched alone, bit for bit equal to the same lanes of the full
-     launch
+     kernel solution's KKT residuals within 1e-8; K5 on the PC grid's
+     blocks, f32 and f64, on a permutation of the lanes and on 256 lanes
+     alone, bit for bit equal to the full launch; solve_lqr_batched
+     launching K5a and K5b once each
   10. slice 3 main path at f32: the predictor-corrector grid with phase
      3's checks, except that K4a launches = host-loop steps, K4b = twice
      that, no K1, and the solved fraction is printed, not barred; then
@@ -96,10 +100,11 @@ printed):
      predictor-corrector on phase 7's two workloads with phase 7's checks
      and the same launch and agreement bars
   11. slice 3 times: K4a, K4b, K5a and K5b ms per call against their plain
-     versions at B = 4096; K4a and K4b at B = 4096, 1024, 256 and 1 (the
-     PC grid's initial-state calls, their first lanes), each beside its
-     bound and the share of it; the predictor-corrector grid's ms per call,
-     solves/s and mean iterations beside phase 4's monotone ones; the
+     versions at B = 4096; each at B = 4096, 1024, 256 and 1 (K4: the PC
+     grid's initial-state calls, K5: the random blocks, their first lanes),
+     beside its bound and the share of it; the predictor-corrector grid's
+     ms per call, solves/s and mean iterations beside phase 4's monotone
+     ones; the
      predictor-corrector step's ms per call and steps/s; nmpc_step at B = 1
      in DEFAULT_CONFIG with the predictor-corrector, p50 / p99 over 30 calls
 
@@ -972,12 +977,13 @@ def hold_kernels(jobs, rel_tol, against_f64):
     return worst, "; ".join(report)
 
 
-def k4_lane_position(fa, sa, seed):
-    """K4a and K4b on a permutation of the lanes and on 256 lanes launched
-    alone give the same lanes of the full launch bit for bit (a lane's
-    result depends neither on its slot in the CTA nor on B)."""
-    full_f = lqr_kernel.lqr_factor_fused_lanes(*fa)
-    full_s = lqr_kernel.lqr_backsolve_fused_lanes(*sa)
+def lane_position(label, factor, backsolve, fa, sa, seed):
+    """A factor kernel (wrapper `factor`, arguments fa) and a backsolve
+    kernel (`backsolve`, sa) on a permutation of the lanes and on 256 lanes
+    launched alone give the same lanes of the full launch bit for bit (a
+    lane's result depends neither on its slot in the CTA nor on B)."""
+    full_f = factor(*fa)
+    full_s = backsolve(*sa)
     B = fa[0].shape[-1]
     gen = torch.Generator().manual_seed(seed)
     perm = torch.randperm(B, generator=gen).to(fa[0].device)
@@ -989,29 +995,42 @@ def k4_lane_position(fa, sa, seed):
             return riccati.LQRFactor(*(cut(t, idx) for t in a))
         return a[..., idx].contiguous() if torch.is_tensor(a) else a
 
-    for label, idx in (("a permutation of the lanes", perm),
-                       ("256 lanes alone", part)):
-        got_f = lqr_kernel.lqr_factor_fused_lanes(*(cut(a, idx) for a in fa))
-        got_s = lqr_kernel.lqr_backsolve_fused_lanes(*(cut(a, idx)
-                                                       for a in sa))
+    for what, idx in (("a permutation of the lanes", perm),
+                      ("256 lanes alone", part)):
+        got_f = factor(*(cut(a, idx) for a in fa))
+        got_s = backsolve(*(cut(a, idx) for a in sa))
         torch.cuda.synchronize()
         for name, g, r in zip(got_f._fields + got_s._fields,
                               (*got_f, *got_s), (*full_f, *full_s)):
             r = r[..., idx]
             if not (torch.equal(g.isnan(), r.isnan())
                     and torch.equal(g.nan_to_num(), r.nan_to_num())):
-                fail(f"K4 on {label}: {name} differs from the full launch")
+                fail(f"{label} on {what}: {name} differs from the full launch")
     return (f"bit-identical on a permutation of the {B} lanes and on "
             f"{part.numel()} lanes launched alone")
+
+
+def pc_blocks(fa, sa0):
+    """K5's arguments in solve_lqr_batched's order (Q, R, S, qx, qu, A, B,
+    c, dx0) from the PC grid's own K4 calls: the stage QP blocks and the
+    augmented dynamics of K4a's arguments fa assembled by the plain
+    _assemble_qp_blocks / _aug_dynamics, and the right-hand side of the
+    backsolve sa0."""
+    w = nlp.StageWeights(*fa[:5])
+    Q, R, S = lqr_kernel._assemble_qp_blocks(w, fa[6], fa[5], fa[9], fa[10])
+    A, B = lqr_kernel._aug_dynamics(fa[7], fa[8])
+    c, qx, qu, dx0 = (a.contiguous() for a in sa0[3:])
+    return Q, R, S, qx, qu, A, B, c, dx0
 
 
 def check_k4(dev, cfg_pc):
     """Phase 9, K4: the PC grid's own K4 calls (bench grid of seed 1, B =
     4096) from the initial IPM state and after 8 plain PC iterations, at f64
     and f32; then nh = 18 at f64 on 256 lanes.  Returns the f32 max
-    |kernel - plain| of K4a and K4b from the initial state and the f32
-    initial-state arguments (for the times)."""
-    errs, f32_args = {}, None
+    |kernel - plain| of K4a and K4b from the initial state, the f32
+    initial-state arguments (for the times) and, per dtype, K5's arguments
+    from the initial-state calls (pc_blocks)."""
+    errs, f32_args, blocks = {}, None, {}
     for dtype in (torch.float64, torch.float32):
         f64 = dtype == torch.float64
         rel_tol = 1e-9 if f64 else 1e-3
@@ -1021,6 +1040,7 @@ def check_k4(dev, cfg_pc):
         st = lane_state(state)
         B = st[0].shape[-1]
         fa, sa = record_k4(st, params, cfg_pc)
+        blocks[dtype] = pc_blocks(fa, sa[0])
         w0, rep0 = hold_kernels(k4_jobs(fa, sa), rel_tol, not f64)
         for _ in range(8):
             st = ipm_lanes.lane_step(st, params, cfg_pc.model, cfg_pc.solver,
@@ -1031,7 +1051,9 @@ def check_k4(dev, cfg_pc):
             f"calls: initial state: {rep0}; after 8 plain PC iterations: "
             f"{rep8} (bar {bar})")
         say(f"phase 9 K4 lane position {str(dtype)[6:]}, after 8 plain PC "
-            f"iterations: {k4_lane_position(fa8, sa8[0], 9)}")
+            "iterations: " + lane_position(
+                "K4", lqr_kernel.lqr_factor_fused_lanes,
+                lqr_kernel.lqr_backsolve_fused_lanes, fa8, sa8[0], 9))
         if f64:
             nh, lanes = 18, 256
 
@@ -1050,7 +1072,7 @@ def check_k4(dev, cfg_pc):
                     "lqr_backsolve_fused": max(v for k, v in w0.items()
                                                if k != "K4a")}
             f32_args = (fa, sa)
-    return errs, f32_args
+    return errs, f32_args, blocks
 
 
 def random_lqr(rng, N, Bn):
@@ -1099,35 +1121,51 @@ def kkt_residuals(args, sol):
     }
 
 
-def check_k5(dev):
-    """Phase 9, K5: random well-conditioned blocks at B = 4096, N = 20,
-    against the plain factor and backsolve (f64 within 1e-9 (1+|ref|), f32
-    within 1e-4 (1+|ref|)); the f64 kernel solution's KKT residuals within
-    1e-8; then the path, riccati.solve_lqr_batched at f32, counted.
-    Returns the f32 max |kernel - plain|, the path's launches and the f32
-    arguments (for the times)."""
-    args = random_lqr(np.random.default_rng(0), LQR_N, LQR_B)
-    for dtype, rel_tol in ((torch.float64, 1e-9), (torch.float32, 1e-4)):
-        t = [torch.as_tensor(a, dtype=dtype, device=dev) for a in args]
-        Q, R, S, qx, qu, A, B, c, dx0 = t
-        fac = lqr_kernel.lqr_factor_reference(Q, R, S, A, B)
-        worst, rep = hold_kernels([
-            ("K5a", lqr_kernel.lqr_factor_lanes,
+def k5_jobs(args):
+    """(label, kernel wrapper, plain version, args) of K5a and K5b on K5's
+    arguments in solve_lqr_batched's order, K5b against the plain factor."""
+    Q, R, S, qx, qu, A, B, c, dx0 = args
+    fac = lqr_kernel.lqr_factor_reference(Q, R, S, A, B)
+    return [("K5a", lqr_kernel.lqr_factor_lanes,
              lqr_kernel.lqr_factor_reference, (Q, R, S, A, B)),
             ("K5b", lqr_kernel.lqr_backsolve_lanes,
              lqr_kernel.lqr_backsolve_reference,
-             (fac, A, B, c, qx, qu, dx0)),
-        ], rel_tol, False)
-        msg = ""
-        if dtype == torch.float64:
-            res = kkt_residuals(args, [a.cpu() for a in
-                                       riccati.solve_lqr_batched(*t)])
-            if max(res.values()) > 1e-8:
-                fail(f"K5 f64 KKT residuals {res} > 1e-8")
-            msg = "; KKT residuals of the kernel solution: " + ", ".join(
-                f"{k} {v:.1e}" for k, v in res.items()) + " (bar 1e-8)"
-        say(f"phase 9 K5 vs plain {str(dtype)[6:]} B={LQR_B} N={LQR_N} random "
-            f"blocks: {rep} (bar {rel_tol:g} (1+|ref|)){msg}")
+             (fac, A, B, c, qx, qu, dx0))]
+
+
+def check_k5(dev, pc):
+    """Phase 9, K5: random well-conditioned blocks at B = 4096, N = 20 and
+    the PC grid's own blocks (pc: K5's arguments per dtype, pc_blocks),
+    against the plain factor and backsolve (f64 within 1e-9 (1+|ref|), f32
+    within 1e-4 (1+|ref|)); the f64 kernel solution's KKT residuals within
+    1e-8; K5 on the PC grid's blocks bit-identical on a permutation of the
+    lanes and on 256 lanes alone; then the path, riccati.solve_lqr_batched
+    at f32, counted.  Returns the f32 max |kernel - plain| on the random
+    blocks, the path's launches and the f32 random arguments (for the
+    times)."""
+    rnd = random_lqr(np.random.default_rng(0), LQR_N, LQR_B)
+    for dtype, rel_tol in ((torch.float64, 1e-9), (torch.float32, 1e-4)):
+        t = [torch.as_tensor(a, dtype=dtype, device=dev) for a in rnd]
+        for label, args in (("random blocks", t),
+                            ("the PC grid's blocks", pc[dtype])):
+            w, rep = hold_kernels(k5_jobs(args), rel_tol, False)
+            if label == "random blocks":
+                worst = w
+            msg = ""
+            if dtype == torch.float64:
+                res = kkt_residuals(
+                    [a.cpu() for a in args],
+                    [a.cpu() for a in riccati.solve_lqr_batched(*args)])
+                if max(res.values()) > 1e-8:
+                    fail(f"K5 f64 KKT residuals on {label}: {res} > 1e-8")
+                msg = "; KKT residuals of the kernel solution: " + ", ".join(
+                    f"{k} {v:.1e}" for k, v in res.items()) + " (bar 1e-8)"
+            B = args[0].shape[-1]
+            say(f"phase 9 K5 vs plain {str(dtype)[6:]} B={B} N={LQR_N} "
+                f"{label}: {rep} (bar {rel_tol:g} (1+|ref|)){msg}")
+        (_, fac5, _, fa5), (_, bs5, _, sa5) = k5_jobs(pc[dtype])
+        say(f"phase 9 K5 lane position {str(dtype)[6:]}, the PC grid's "
+            "blocks: " + lane_position("K5", fac5, bs5, fa5, sa5, 9))
     reset_counts()
     riccati.solve_lqr_batched(*t)
     torch.cuda.synchronize()
@@ -1181,16 +1219,16 @@ def step_times(cfg, dev, drift, label, card, phase):
         f"solved {np.mean(solved_t):.6f}, mean iters {np.mean(iters):.3f}")
 
 
-def time_k4(calls, flops, card):
-    """Phase 11, K4a and K4b at B = 4096, 1024, 256 and 1: the first lanes
-    of the PC grid's initial-state calls, ms per call (CUDA events, twice)
+def time_riccati(calls, flops, card):
+    """Phase 11, K4a, K4b, K5a and K5b at B = 4096, 1024, 256 and 1: the
+    first lanes of each one's calls, ms per call (CUDA events, twice)
     beside the bound of those lanes' bytes and operations."""
     def cut(a, Bw):
         if isinstance(a, riccati.LQRFactor):
             return riccati.LQRFactor(*(cut(t, Bw) for t in a))
         return a[..., :Bw].contiguous() if torch.is_tensor(a) else a
 
-    for name in ("lqr_factor_fused", "lqr_backsolve_fused"):
+    for name in LQR_KERNELS:
         kernel = getattr(lqr_kernel, name + "_lanes")
         plain = getattr(lqr_kernel, name + "_reference")
         rows = []
@@ -1214,8 +1252,9 @@ def run_slice3(dev, card, mono_grid):
     f32 = torch.float32
 
     # ---- phase 9: K4 and K5 vs plain --------------------------------------
-    errs, (fa, sa) = check_k4(dev, cfg_pc)
-    errs5, launches, k5 = check_k5(dev)
+    errs, (fa, sa), blocks = check_k4(dev, cfg_pc)
+    errs5, launches, k5 = check_k5(dev, blocks)
+    del blocks
     errs.update(errs5)
 
     # ---- phase 10: the predictor-corrector main path ----------------------
@@ -1255,7 +1294,7 @@ def run_slice3(dev, card, mono_grid):
         f"bound {bounds[n][0]:.4f} ms by {bounds[n][1]}"
         for n in calls) + " (K4: the PC grid's initial-state calls, K5: the "
         "random blocks)")
-    time_k4(calls, flops, card)
+    time_riccati(calls, flops, card)
     lat_ms, iters = grid_times(cfg_pc, dev)
     mono_ms, mono_iters = mono_grid
     Bg = workloads.N_GOALS * workloads.N_FORCES * len(workloads.HALVES)
@@ -1418,13 +1457,15 @@ def build_phase():
     say(f"phase 1 K3 (corridor.cu) per CTA (one scenario, N = {N}): "
         + "; ".join(geo) + " (registers: the corridor.cu line above)")
     geo = []
-    for label, backsolve in (("K4a", False), ("K4b", True)):
+    for name, (label, _) in LQR_KERNELS.items():
         for dtype in (torch.float32, torch.float64):
-            g = lqr_kernel.launch_geometry(dtype, N, backsolve)
+            g = lqr_kernel.launch_geometry(
+                dtype, N, "backsolve" in name, blocks=not name.endswith(
+                    "_fused"))
             geo.append(f"{label} {str(dtype)[6:]} {g.lanes} lanes x "
                        f"{g.smem // g.lanes} B = {g.smem} B of shared memory, "
                        f"{g.threads} threads")
-    say(f"phase 1 K4 (lqr.cu, a warp per lane) per CTA at N = {N}: "
+    say(f"phase 1 K4 and K5 (lqr.cu, a warp per lane) per CTA at N = {N}: "
         + "; ".join(geo) + " (registers and spills: the lqr.cu line above)")
 
 

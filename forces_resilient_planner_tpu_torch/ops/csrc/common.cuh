@@ -60,17 +60,6 @@ __device__ void mm(const T* a, const T* b, T* out) {
       out[i * K + k] = acc;
     }
 }
-// out (I x K) = a^T @ b, a (J x I), b (J x K)
-template <int I, int J, int K, typename T>
-__device__ void mtm(const T* a, const T* b, T* out) {
-#pragma unroll 1
-  for (int i = 0; i < I; ++i)
-    for (int k = 0; k < K; ++k) {
-      T acc = a[i] * b[k];
-      for (int j = 1; j < J; ++j) acc += a[j * I + i] * b[j * K + k];
-      out[i * K + k] = acc;
-    }
-}
 // out (I x K) = a (I x J) @ b^T, b (K x J)
 template <int I, int J, int K, typename T>
 __device__ void mmt(const T* a, const T* b, T* out) {

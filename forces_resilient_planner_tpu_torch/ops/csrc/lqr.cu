@@ -14,74 +14,80 @@
 // rounds as there: on the same inputs the kernels match their plain
 // versions bit for bit (the CPU build of tests/test_torch_lqr_kernel.py).
 //
-// K4 (the predictor-corrector's factor and backsolve, PR 6 design):
+// K4 (the predictor-corrector's factor and backsolve) and K5 (the batched
+// LQR of solve_lqr_batched) share one design and run one recursion each,
+// on two stage sources: K4 assembles the stage QP blocks and the augmented
+// dynamics Abar = [[Ax, 0], [0, 0]], Bbar = [[Bx], [I4]] on chip, K5 reads
+// full Q (13x13), R (4x4), S (4x13), A (13x13) and B (13x4) blocks.
 //  * a team of one warp per lane, MAX_LANES = 8 lanes per CTA at
 //    consecutive b (ops/lqr_kernel.py::launch_geometry).  Each lane's
 //    working set lives in dynamic shared memory (fac_layout / solve_layout
 //    below, mirrored by lqr_kernel.lane_elements); no global scratch;
-//  * the CTA moves data lane-minor, neighbouring threads on neighbouring b:
-//    K4a's prologue assembles every stage's QP blocks at once, one thread a
-//    (lane, stage), as their QA = 24 distinct values (Q's diagonal, the
-//    corridor block's 6 sums over the nh rows in the plain version's order,
-//    R's diagonal, S's -2 w_rate), so the corridor sums leave the serial
-//    path; each stage's inputs are copied in with cp.async one stage
-//    ahead, and each stage's outputs are written out from shared memory
-//    after one CTA barrier a stage;
-//  * K4a keeps the dynamics in shared memory as G = [Abar | Bbar] (13 x
-//    17), its zero and identity blocks written once, Ax and Bx copied into
-//    it each stage; K4b reads Ax and Bx through g_of, which gives the same
-//    entries.  Every product multiplies through the zero blocks as the
-//    plain version does (0 * inf = NaN on the same lanes, which trips
-//    lane_step's NaN guard) and every thread runs one instruction stream;
-//  * K4a's recursion gives each thread one output column of 9 rows: AtP /
-//    BtP (= G^T P), then Qh / Sh / Rh (= [Q;S;R] + [AtP;BtP] G), their sums
-//    advancing together (9 independent chains), each in the plain version's
-//    order; K = -Rh^{-1} Sh one column a thread; P = sym(Qh + Sh^T K) as 91
-//    (r <= c) pairs over the warp, in place of Qh; __syncwarp between
-//    dependent products.  P_{i+1} and Qh / P_i take turns in two buffers;
-//  * K4b keeps the lane's p and k stacks in shared memory and reads P, K
-//    and the dynamics again in the forward pass (the same bytes as the
-//    backward pass, partly from L2): the backward pass gives P_{i+1} c,
-//    [Abar^T; Bbar^T] Pc and K^T quh one row a thread, the forward pass du
-//    beside the costates P_i dxb_i + p_i, then Abar dxb + Bbar du; dxb_i
-//    and du_i leave the lane after their stage;
+//  * the CTA moves data lane-minor, neighbouring threads on neighbouring b
+//    (get_rows / put_rows): each stage's inputs are copied in with cp.async
+//    one stage ahead, and each stage's outputs are written out from shared
+//    memory after one CTA barrier a stage.  K4a's prologue assembles every
+//    stage's QP blocks at once, one thread a (lane, stage), as their QA =
+//    24 distinct values (Q's diagonal, the corridor block's 6 sums over the
+//    nh rows in the plain version's order, R's diagonal, S's -2 w_rate), so
+//    the corridor sums leave the serial path; K5a streams two stages' [Q;
+//    R; S] (237 values) in turns;
+//  * the factor keeps the dynamics in shared memory as G = [A | B] (13 x
+//    17), copied in each stage (K4a: Ax and Bx, Abar's zero and Bbar's
+//    identity blocks written once); the backsolve reads them through its
+//    stage block's g(), which for K4b gives Abar's and Bbar's constant
+//    entries.  Every product multiplies through every entry, zeros
+//    included, as the plain version does (0 * inf = NaN on the same lanes,
+//    which trips lane_step's NaN guard) and every thread runs one
+//    instruction stream;
+//  * the factor's recursion (factor_stage, one body for K4a and K5a) gives
+//    each thread one output column of 9 rows: AtP / BtP (= G^T P), then Qh
+//    / Sh / Rh (= [Q;S;R] + [AtP;BtP] G), their sums advancing together (9
+//    independent chains), each in the plain version's order; K = -Rh^{-1}
+//    Sh one column a thread; P = sym(Qh + Sh^T K) as 91 (r <= c) pairs over
+//    the warp, in place of Qh; __syncwarp between dependent products.
+//    P_{i+1} and Qh / P_i take turns in two buffers;
+//  * the backsolve (one kernel template for K4b and K5b) keeps the lane's
+//    p and k stacks in shared memory and reads P, K and the dynamics again
+//    in the forward pass (the same bytes as the backward pass, partly from
+//    L2): the backward pass gives P_{i+1} c, [A^T; B^T] Pc and K^T quh one
+//    row a thread, the forward pass du beside the costates P_i dxb_i + p_i,
+//    then A dxb + B du; dxb_i and du_i leave the lane after their stage;
 //  * the packed 4x4 Cholesky factors keep their divisions (no reciprocal
 //    diagonal as in ipm_iteration.cu): bit-equality with the plain version
 //    is worth more here, where P is ill-conditioned late in a solve;
 //  * a lane's result depends neither on its slot in the CTA nor on B.
 //
-// K5 (the batched LQR of solve_lqr_batched, PR 3 design): one thread per
-// lane, 32 lanes per block, per-stage 13x13 temporaries in thread-local
-// arrays; the backsolve keeps its p and k stacks in a lane-minor global
-// scratch buffer (lqr_backsolve_scratch_per_lane).
-//
 // What bounds them: bytes.  At N = 20, B = 4096, f32, K4a reads 5,403
 // values a lane and writes 4,620 (0.049 ms of the card's 3.35 TB/s), K4b
-// reads 7,439 and writes 604 (0.039 ms); their arithmetic (0.4 and 0.1
+// reads 7,439 and writes 604 (0.039 ms); K5a reads 8,939 and writes 4,620
+// (0.066 ms), K5b 9,415 and 604 (0.049 ms); their arithmetic (0.1-0.4
 // GFLOP) is an order below.  In practice each lane's serial recursion over
-// the stages sets the time: K4a takes 0.14 ms for one lane alone and 0.29
-// ms for 4096 (32 lanes an SM in one wave), K4b 0.17-0.18 ms at 4096
-// (tools/k4_phase_probe.py splits the cycles by phase).
+// the stages sets the time: K4a takes 0.11 ms for one lane alone and 0.28-
+// 0.29 ms for 4096 (32 lanes an SM in one wave), K5a 0.08 and 0.25 ms, K4b
+// and K5b 0.17-0.18 ms at 4096 (tools/k4_phase_probe.py splits the cycles
+// by phase).  The stage blocks are copied 4 bytes a thread: 16 bytes a
+// thread through a staging tile (one more CTA barrier a stage) made K5b 4%
+// faster at B = 4096 but up to 50% slower at B = 1 and 256, and K4b slower
+// (PERF.md).
 //
-// ptxas (sm_90a, CUDA 12.8), registers / stack / spill stores / loads:
-//   f32: K4a 64 / 0 / 0 / 0; K4b 64 / 0 / 0 / 0;
-//        K5a 168 / 5,088 B / 4,860 / 5,396 B; K5b 255 / 8 B / 16 / 16 B
-//   f64: K4a 128 / 0 / 0 / 0; K4b 104 / 0 / 0 / 0;
-//        K5a 168 / 10,592 B / 13,124 / 15,980 B; K5b 254 / 16 B / 24 / 16 B
+// ptxas (sm_90a, CUDA 12.8), registers, with 0 bytes of stack and spills:
+//   f32: K4a 64, K4b 64, K5a 64, K5b 64 (4 CTAs an SM);
+//   f64: K4a 126, K4b 102, K5a 122, K5b 112
 // At B = 4096, N = 20, f32, on an NVIDIA H100 80GB HBM3 at 700 W: K4a
-// 0.29 ms (0.90 with PR 3's thread per lane), K4b 0.17-0.18 ms (0.22), K5a
-// 1.23 ms, K5b 0.27 ms per call (PERF.md).
+// 0.28-0.29 ms, K4b 0.17 ms, K5a 0.25 ms, K5b 0.18 ms per call (a thread
+// per lane took 0.90, 0.22, 1.23 and 0.27 ms; PERF.md).
 #include "riccati.cuh"
 
 namespace frp {
 
-constexpr int THREADS = 32;    // K5: lanes (threads) per block
-constexpr int WARP = 32;       // K4: threads per lane
-constexpr int MAX_LANES = 8;   // K4: lanes per CTA (ops/lqr_kernel.py)
-// K4's CTAs an SM is built to hold: 4 at f32 (32 lanes an SM, so 4096
+constexpr int WARP = 32;           // threads per lane
+constexpr int MAX_LANES_LOG2 = 3;  // 8 lanes per CTA (ops/lqr_kernel.py)
+constexpr int MAX_LANES = 1 << MAX_LANES_LOG2;
+// the CTAs an SM is built to hold: 4 at f32 (32 lanes an SM, so 4096
 // lanes in one wave, at 64 registers), 2 at f64
 template <typename T>
-struct K4Ctas {
+struct CtasPerSm {
   static constexpr int min = sizeof(T) == 4 ? 4 : 2;
 };
 
@@ -105,276 +111,94 @@ __device__ __forceinline__ void k4_clock(int k) {
   } while (0)
 #endif
 
-// ===========================================================================
-// K5: one thread per lane (PR 3)
-// ===========================================================================
-
-// pre-assembled Q (N, 13, 13), R (N, 4, 4), S (N, 4, 13)
-template <typename T>
-struct BlockQP {
-  Lane<const T> Q, R, S;
-  __device__ void blocks(int i, T* q, T* r, T* s) const {
-    ld(Q, size_t(i) * NXB * NXB, q, NXB * NXB);
-    ld(R, size_t(i) * NU * NU, r, NU * NU);
-    ld(S, size_t(i) * NU * NXB, s, NU * NXB);
-  }
-};
-
-// pre-assembled A (N-1, 13, 13), B (N-1, 13, 4)
-template <typename T>
-struct BlockDyn {
-  Lane<const T> A, B;
-  __device__ void blocks(int i, T* a, T* b) const {
-    ld(A, size_t(i) * NXB * NXB, a, NXB * NXB);
-    ld(B, size_t(i) * NXB * NU, b, NXB * NU);
-  }
-};
-
-// the stored factorization (solver/riccati.py::LQRFactor)
-template <typename P>
-struct Factor {
-  Lane<P> P_, K, cRh, RiS, cRt;  // (N,13,13) (N-1,4,13) (N-1,10) (4,13) (10)
-};
-
-// the factor sweep (riccati.lqr_factor_ll)
-template <typename T>
-__device__ void factor_sweep(const BlockQP<T>& qp, const BlockDyn<T>& dyn,
-                             const int N, const Factor<T>& f) {
-  T P[NXB * NXB];
-  {
-    T Q[NXB * NXB], R[NU * NU], S[NU * NXB], fR[10], RiS[NU * NXB];
-    T StR[NXB * NXB];
-    qp.blocks(N - 1, Q, R, S);
-    chol4(R, fR);
-    chol4_solve<NXB>(fR, S, RiS);
-    mtm<NXB, NU, NXB>(S, RiS, StR);
-    for (int k = 0; k < NXB * NXB; ++k) P[k] = Q[k] - StR[k];
-    st(f.cRt, 0, fR, 10);
-    st(f.RiS, 0, RiS, NU * NXB);
-    st(f.P_, size_t(N - 1) * NXB * NXB, P, NXB * NXB);
-  }
-  for (int i = N - 2; i >= 0; --i) {
-    T Q[NXB * NXB], R[NU * NU], S[NU * NXB], Abar[NXB * NXB], Bbar[NXB * NU];
-    T AtP[NXB * NXB], BtP[NU * NXB], tmp[NXB * NXB], fh[10], Kg[NU * NXB];
-    qp.blocks(i, Q, R, S);
-    dyn.blocks(i, Abar, Bbar);
-    mtm<NXB, NXB, NXB>(Abar, P, AtP);
-    mtm<NU, NXB, NXB>(Bbar, P, BtP);
-    mm<NXB, NXB, NXB>(AtP, Abar, tmp);
-    for (int k = 0; k < NXB * NXB; ++k) Q[k] += tmp[k];          // Qh
-    mm<NU, NXB, NU>(BtP, Bbar, tmp);
-    for (int k = 0; k < NU * NU; ++k) R[k] += tmp[k];            // Rh
-    mm<NU, NXB, NXB>(BtP, Abar, tmp);
-    for (int k = 0; k < NU * NXB; ++k) S[k] += tmp[k];           // Sh
-    chol4(R, fh);
-    chol4_solve<NXB>(fh, S, Kg);
-    for (int k = 0; k < NU * NXB; ++k) Kg[k] = -Kg[k];
-    mtm<NXB, NU, NXB>(S, Kg, tmp);
-    for (int k = 0; k < NXB * NXB; ++k) Q[k] += tmp[k];          // Pn
-    for (int r = 0; r < NXB; ++r)
-      for (int col = 0; col < NXB; ++col)
-        P[r * NXB + col] = T(0.5) * (Q[r * NXB + col] + Q[col * NXB + r]);
-    st(f.K, size_t(i) * NU * NXB, Kg, NU * NXB);
-    st(f.cRh, size_t(i) * 10, fh, 10);
-    st(f.P_, size_t(i) * NXB * NXB, P, NXB * NXB);
-  }
-}
-
-// the backsolve (riccati.lqr_solve_ll); p_s (N x 13) and k_s ((N-1) x 4)
-// are the lane's scratch stacks
-template <typename T>
-__device__ void backsolve(const BlockDyn<T>& dyn, const int N,
-                          const Factor<const T>& f, const Lane<const T>& c,
-                          const Lane<const T>& qx, const Lane<const T>& qu,
-                          const Lane<const T>& dx0, const Lane<T>& dxb_o,
-                          const Lane<T>& du_o, const Lane<T>& nu_o,
-                          const Lane<T>& dth_o, const Lane<T>& p_s,
-                          const Lane<T>& k_s) {
-  T RiS[NU * NXB], Riqu[NU], p0[NXB];
-  {
-    T cRt[10], quN[NU], qxN[NXB], t13[NXB];
-    ld(f.RiS, 0, RiS, NU * NXB);
-    ld(f.cRt, 0, cRt, 10);
-    ld(qu, size_t(N - 1) * NU, quN, NU);
-    ld(qx, size_t(N - 1) * NXB, qxN, NXB);
-    chol4_solve<1>(cRt, quN, Riqu);
-    mtv<NXB, NU>(RiS, quN, t13);
-    for (int k = 0; k < NXB; ++k) p0[k] = qxN[k] - t13[k];
-    st(p_s, size_t(N - 1) * NXB, p0, NXB);
-  }
-  for (int i = N - 2; i >= 0; --i) {
-    T Pn[NXB * NXB], ci[NXB], Pc[NXB], Abar[NXB * NXB], Bbar[NXB * NU];
-    T qxh[NXB], quh[NU], t13[NXB], t4[NU], fh[10], kv[NU], Kg[NU * NXB];
-    ld(f.P_, size_t(i + 1) * NXB * NXB, Pn, NXB * NXB);
-    ld(c, size_t(i) * NXB, ci, NXB);
-    mv<NXB, NXB>(Pn, ci, t13);
-    for (int k = 0; k < NXB; ++k) Pc[k] = p0[k] + t13[k];
-    dyn.blocks(i, Abar, Bbar);
-    mtv<NXB, NXB>(Abar, Pc, t13);
-    for (int k = 0; k < NXB; ++k) qxh[k] = qx[size_t(i) * NXB + k] + t13[k];
-    mtv<NU, NXB>(Bbar, Pc, t4);
-    for (int k = 0; k < NU; ++k) quh[k] = qu[size_t(i) * NU + k] + t4[k];
-    ld(f.cRh, size_t(i) * 10, fh, 10);
-    chol4_solve<1>(fh, quh, kv);
-    for (int k = 0; k < NU; ++k) kv[k] = -kv[k];
-    st(k_s, size_t(i) * NU, kv, NU);
-    ld(f.K, size_t(i) * NU * NXB, Kg, NU * NXB);
-    mtv<NXB, NU>(Kg, quh, t13);
-    for (int k = 0; k < NXB; ++k) p0[k] = qxh[k] + t13[k];
-    st(p_s, size_t(i) * NXB, p0, NXB);
-  }
-  // stage-0 free u_prev (dtheta): minimize over it with x fixed to dx0
-  T dxb[NXB];
-  {
-    T P0[NXB * NXB], Ptt[NU * NU], fP[10], rhs[NU];
-    ld(f.P_, 0, P0, NXB * NXB);
-    ld(dx0, 0, dxb, NX);
-    for (int k = 0; k < NU; ++k) {
-      T acc = P0[NX + k] * dxb[0];
-      for (int j = 1; j < NX; ++j) acc += P0[j * NXB + NX + k] * dxb[j];
-      rhs[k] = -(p0[NX + k] + acc);
-      for (int l = 0; l < NU; ++l) Ptt[k * NU + l] = P0[(NX + k) * NXB + NX + l];
-    }
-    chol4(Ptt, fP);
-    chol4_solve<1>(fP, rhs, dxb + NX);
-    st(dth_o, 0, dxb + NX, NU);
-  }
-  // forward rollout; costates nu_i = P_i dxb_i + p_i
-  for (int i = 0; i < N; ++i) {
-    T du[NU], Pi[NXB * NXB], nu[NXB];
-    if (i < N - 1) {
-      T Kg[NU * NXB];
-      ld(f.K, size_t(i) * NU * NXB, Kg, NU * NXB);
-      mv<NU, NXB>(Kg, dxb, du);
-      for (int k = 0; k < NU; ++k) du[k] += k_s[size_t(i) * NU + k];
-    } else {
-      mv<NU, NXB>(RiS, dxb, du);
-      for (int k = 0; k < NU; ++k) du[k] = -(Riqu[k] + du[k]);
-    }
-    ld(f.P_, size_t(i) * NXB * NXB, Pi, NXB * NXB);
-    mv<NXB, NXB>(Pi, dxb, nu);
-    for (int k = 0; k < NXB; ++k) nu[k] += p_s[size_t(i) * NXB + k];
-    st(dxb_o, size_t(i) * NXB, dxb, NXB);
-    st(du_o, size_t(i) * NU, du, NU);
-    st(nu_o, size_t(i) * NXB, nu, NXB);
-    if (i < N - 1) {
-      T Abar[NXB * NXB], Bbar[NXB * NU], a13[NXB], b13[NXB];
-      dyn.blocks(i, Abar, Bbar);
-      mv<NXB, NXB>(Abar, dxb, a13);
-      mv<NXB, NU>(Bbar, du, b13);
-      for (int k = 0; k < NXB; ++k)
-        dxb[k] = a13[k] + b13[k] + c[size_t(i) * NXB + k];
-    }
-  }
-}
-
-template <typename P>
-__device__ __forceinline__ Lane<P> lane(P* p, int b, int B) {
-  return Lane<P>{p + b, static_cast<size_t>(B)};
-}
-
-// K5a
-template <typename T>
-__global__ void __launch_bounds__(THREADS) lqr_factor_kernel(
-    const int N, const int B, const T* __restrict__ Q,
-    const T* __restrict__ R, const T* __restrict__ S,
-    const T* __restrict__ A, const T* __restrict__ Bm, T* __restrict__ P,
-    T* __restrict__ K, T* __restrict__ cRh, T* __restrict__ RiS,
-    T* __restrict__ cRt) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  const BlockQP<T> qp{lane(Q, b, B), lane(R, b, B), lane(S, b, B)};
-  const BlockDyn<T> dyn{lane(A, b, B), lane(Bm, b, B)};
-  factor_sweep<T>(qp, dyn, N,
-                  Factor<T>{lane(P, b, B), lane(K, b, B), lane(cRh, b, B),
-                            lane(RiS, b, B), lane(cRt, b, B)});
-}
-
-// K5b
-template <typename T>
-__global__ void __launch_bounds__(THREADS) lqr_backsolve_kernel(
-    const int N, const int B, const T* __restrict__ P,
-    const T* __restrict__ K, const T* __restrict__ cRh,
-    const T* __restrict__ RiS, const T* __restrict__ cRt,
-    const T* __restrict__ A, const T* __restrict__ Bm,
-    const T* __restrict__ c, const T* __restrict__ qx,
-    const T* __restrict__ qu, const T* __restrict__ dx0,
-    T* __restrict__ dxb, T* __restrict__ du, T* __restrict__ nu,
-    T* __restrict__ dth, T* __restrict__ scratch) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  const BlockDyn<T> dyn{lane(A, b, B), lane(Bm, b, B)};
-  const Lane<T> p_s = lane(scratch, b, B);
-  const Lane<T> k_s = lane(scratch + size_t(N) * NXB * B, b, B);
-  backsolve<T>(dyn, N,
-               Factor<const T>{lane(P, b, B), lane(K, b, B), lane(cRh, b, B),
-                               lane(RiS, b, B), lane(cRt, b, B)},
-               lane(c, b, B), lane(qx, b, B), lane(qu, b, B),
-               lane(dx0, b, B), lane(dxb, b, B), lane(du, b, B),
-               lane(nu, b, B), lane(dth, b, B), p_s, k_s);
-}
-
-inline int blocks_for(int B) { return (B + THREADS - 1) / THREADS; }
-
-// ===========================================================================
-// K4: a warp per lane (PR 6)
-// ===========================================================================
-
 constexpr int NN = NXB * NXB;
-constexpr int QA = NXB + 6 + NU + 1;   // a stage's distinct QP values
-constexpr int GC = NXB + NU;           // G = [Abar | Bbar]: 17 columns
+constexpr int QA = NXB + 6 + NU + 1;          // K4: a stage's distinct QP values
+constexpr int QRS = NN + NU * NU + NU * NXB;  // K5: a stage's [Q; R; S]
+constexpr int GC = NXB + NU;           // G = [A | B]: 17 columns
 constexpr int GN = NXB * GC;
 constexpr int ABR = NXB + NU + 1;      // rows of [AtP; BtP] and a zero row
 constexpr int NPAIR = NXB * (NXB + 1) / 2;
 constexpr int PAIRS = (NPAIR + WARP - 1) / WARP;   // (r <= c) pairs a thread
 
-// ---- one lane's shared-memory layouts (elements of T) ----------------------
-// ops/lqr_kernel.py::lane_elements mirrors both totals.
-struct FacLayout {
-  int qa, G, P, AB, Sh, Rh, K, cR, RiS, cRt, total;
+// a launch's inputs and outputs, in the order of the C entry points
+template <typename T, int NI, int NO>
+struct Args {
+  const T* in[NI];
+  T* out[NO];
 };
 
-__host__ __device__ inline FacLayout fac_layout(int N) {
+// ---- one lane's shared-memory layouts (elements of T) ----------------------
+// ops/lqr_kernel.py::lane_elements mirrors the totals.
+struct FacLayout {
+  int qp, G, P, AB, Sh, Rh, K, cR, RiS, cRt, total;
+};
+
+// K4a (blocks = false) or K5a (blocks = true); the region whose size
+// depends on N comes last, so that the others sit at constant offsets
+__host__ __device__ inline FacLayout fac_layout(int N, bool blocks) {
   FacLayout L;
   int off = 0;
   auto take = [&](int count) { const int o = off; off += count; return o; };
-  L.qa = take(N * QA);       // every stage's QP values
   L.G = take(2 * GN);        // the dynamics of two stages, in turns
   L.P = take(2 * NN);        // P_{i+1} and Qh, then P_i, in turns
-  L.AB = take(ABR * NXB);    // [Abar^T P; Bbar^T P]
+  L.AB = take(ABR * NXB);    // [A^T P; B^T P]
   L.Sh = take(NU * NXB);
   L.Rh = take(NU * NU);
   L.K = take(2 * NU * NXB);  // K_i, in turns
   L.cR = take(2 * 10);       // the packed Cholesky factor of Rh_i, in turns
   L.RiS = take(NU * NXB);
   L.cRt = take(10);
+  // K4a: every stage's QP values; K5a: two stages' [Q; R; S], in turns
+  L.qp = take(blocks ? 2 * QRS : N * QA);
   L.total = off;
   return L;
 }
 
-// K4b's stage block: P, Ax, Bx, c, [qx; qu], K, cRh of one stage
-constexpr int SB_P = 0, SB_AX = NN, SB_BX = SB_AX + NX * NX;
-constexpr int SB_C = SB_BX + NX * NU, SB_Q = SB_C + NXB;
-constexpr int SB_K = SB_Q + NXB + NU, SB_CR = SB_K + NU * NXB;
-constexpr int SB = SB_CR + 10;
+// A backsolve's stage block: P, the dynamics, c, [qx; qu], K, cRh of one
+// stage.  K4b (FULL = false) holds Ax (9x9) and Bx (9x4), K5b A (13x13) and
+// B (13x4).
+template <bool FULL>
+struct Block {
+  static constexpr int AN = FULL ? NN : NX * NX;
+  static constexpr int BN = FULL ? NXB * NU : NX * NU;
+  static constexpr int P = 0, A = NN, B = A + AN, C = B + BN, Q = C + NXB;
+  static constexpr int K = Q + NXB + NU, CR = K + NU * NXB, size = CR + 10;
+
+  // the entry (j, col) of [A | B] (13 x 17); for K4b of [Abar | Bbar],
+  // zeros and ones included
+  template <typename T>
+  __device__ __forceinline__ static T g(const T* blk, int j, int col) {
+    if constexpr (FULL) {
+      return col < NXB ? blk[A + j * NXB + col] : blk[B + j * NU + col - NXB];
+    } else {
+      if (j < NX) {
+        if (col < NX) return blk[A + j * NX + col];
+        return col < NXB ? T(0) : blk[B + j * NU + col - NXB];
+      }
+      return col == NXB + j - NX ? T(1) : T(0);
+    }
+  }
+};
 
 struct SolveLayout {
   int p, kk, dx, du, blk, Pc, qh, RiS, Riqu, total;
 };
 
-__host__ __device__ inline SolveLayout solve_layout(int N) {
+// K4b (block = Block<false>::size) or K5b (Block<true>::size); the stacks,
+// whose size depends on N, come last
+__host__ __device__ inline SolveLayout solve_layout(int N, int block) {
   SolveLayout L;
   int off = 0;
   auto take = [&](int count) { const int o = off; off += count; return o; };
-  L.p = take(N * NXB);       // p, then the costates nu
-  L.kk = take((N - 1) * NU);
   L.dx = take(3 * NXB);      // dxb_i, in turns of three
   L.du = take(2 * NU);       // du_i, in turns
-  L.blk = take(2 * SB);      // two stages' inputs, in turns
+  L.blk = take(2 * block);   // two stages' inputs, in turns
   L.Pc = take(NXB);
   L.qh = take(NXB + NU);     // qxh, quh
   L.RiS = take(NU * NXB);
   L.Riqu = take(NU);
+  L.p = take(N * NXB);       // p, then the costates nu
+  L.kk = take((N - 1) * NU);
   L.total = off;
   return L;
 }
@@ -431,26 +255,62 @@ __device__ __forceinline__ void put_rows(const T* sm, const Cta& c, int off,
     dst[size_t(r) * c.B] = s[r];
 }
 
-// stage i's Ax (9x9) and Bx (9x4) into G = [Abar | Bbar] at off
-template <typename T>
+// stage i's dynamics into G = [A | B] at off: K4a's Ax (9x9) and Bx (9x4)
+// (ND = NX), K5a's A (13x13) and B (13x4) (ND = NXB)
+template <int ND, typename T>
 __device__ __forceinline__ void get_dyn(T* sm, const Cta& c, int off,
-                                        const T* __restrict__ Ax,
-                                        const T* __restrict__ Bx, int i) {
+                                        const T* __restrict__ A,
+                                        const T* __restrict__ Bm, int i) {
   const int l = threadIdx.x & ((1 << c.lg) - 1);
   if (c.b0 + l >= c.B) return;
   T* d = sm + l * c.stride + off;
   const size_t b = c.b0 + l;
-  for (int r = threadIdx.x >> c.lg; r < NX * NX + NX * NU; r += WARP) {
-    if (r < NX * NX)
-      copy_async(d + (r / NX) * GC + r % NX,
-                 Ax + (size_t(i) * NX * NX + r) * c.B + b);
+  for (int r = threadIdx.x >> c.lg; r < ND * ND + ND * NU; r += WARP) {
+    if (r < ND * ND)
+      copy_async(d + (r / ND) * GC + r % ND,
+                 A + (size_t(i) * ND * ND + r) * c.B + b);
     else
-      copy_async(d + ((r - NX * NX) / NU) * GC + NXB + (r - NX * NX) % NU,
-                 Bx + (size_t(i) * NX * NU + r - NX * NX) * c.B + b);
+      copy_async(d + ((r - ND * ND) / NU) * GC + NXB + (r - ND * ND) % NU,
+                 Bm + (size_t(i) * ND * NU + r - ND * ND) * c.B + b);
   }
 }
 
-// G's constant entries: Abar's zero blocks and Bbar's identity
+// ---- a stage's QP blocks: K4a's from its QA values, K5a's as given ---------
+// qa: Q's diagonal (13), the corridor block's sums for l >= j (6), R's
+// diagonal (4), S's value -2 w_rate
+template <typename T>
+struct QaStage {
+  const T* qa;
+  __device__ __forceinline__ T Q(int r, int c) const {
+    T v = r == c ? qa[r] : T(0);
+    if (r < 3 && c < 3) {
+      const int j = r < c ? r : c, l = r < c ? c : r;
+      v += qa[NXB + 3 * j - (j * (j - 1)) / 2 + (l - j)];
+    }
+    return v;
+  }
+  __device__ __forceinline__ T R(int r, int c) const {
+    return r == c ? qa[NXB + 6 + r] : T(0);
+  }
+  __device__ __forceinline__ T S(int r, int c) const {
+    return c == NX + r ? qa[QA - 1] : T(0);
+  }
+};
+
+// v: the stage's [Q; R; S], row-major
+template <typename T>
+struct QrsStage {
+  const T* v;
+  __device__ __forceinline__ T Q(int r, int c) const { return v[r * NXB + c]; }
+  __device__ __forceinline__ T R(int r, int c) const {
+    return v[NN + r * NU + c];
+  }
+  __device__ __forceinline__ T S(int r, int c) const {
+    return v[NN + NU * NU + r * NXB + c];
+  }
+};
+
+// G's constant entries for K4a: Abar's zero blocks and Bbar's identity
 template <typename T>
 __device__ __forceinline__ void g_constants(T* G, int t) {
   for (int e = t; e < GN; e += WARP) {
@@ -458,27 +318,6 @@ __device__ __forceinline__ void g_constants(T* G, int t) {
     if (j >= NX || (col >= NX && col < NXB))
       G[e] = (j >= NX && col == NXB + j - NX) ? T(1) : T(0);
   }
-}
-
-// ---- the stage QP blocks from their QA values -----------------------------
-// qa: Q's diagonal (13), the corridor block's sums for l >= j (6), R's
-// diagonal (4), S's value -2 w_rate
-template <typename T>
-__device__ __forceinline__ T q_of(const T* qa, int r, int c) {
-  T v = r == c ? qa[r] : T(0);
-  if (r < 3 && c < 3) {
-    const int j = r < c ? r : c, l = r < c ? c : r;
-    v += qa[NXB + 3 * j - (j * (j - 1)) / 2 + (l - j)];
-  }
-  return v;
-}
-template <typename T>
-__device__ __forceinline__ T r_of(const T* qa, int r, int c) {
-  return r == c ? qa[NXB + 6 + r] : T(0);
-}
-template <typename T>
-__device__ __forceinline__ T s_of(const T* qa, int r, int c) {
-  return c == NX + r ? qa[QA - 1] : T(0);
 }
 
 // stage i's QA values for one lane (ops/lqr_kernel.py::_assemble_qp_blocks,
@@ -539,7 +378,7 @@ __device__ __forceinline__ void assemble_qa(const T* __restrict__ sig,
   for (int n = 0; n < 6; ++n) qa[NXB + n] = acc[n];
 }
 
-// ---- K4a: one stage of the recursion, on the lane's warp -------------------
+// ---- the factor: one stage of the recursion, on the lane's warp ------------
 // The (r <= c) pair p of P's upper triangle, row-major, as r * 16 + c.
 __device__ __forceinline__ int tri_pair(int p) {
   int r = 0;
@@ -551,20 +390,19 @@ __device__ __forceinline__ int tri_pair(int p) {
 }
 
 // terminal stage N-1: RiS = R^{-1} S, P = Q - S^T RiS into Pn, cRt
-template <typename T>
+template <typename T, typename QP>
 __device__ __forceinline__ void factor_terminal(T* m, const FacLayout& Lo,
-                                                int N, T* Pn, int t) {
-  const T* qa = m + Lo.qa + (N - 1) * QA;
+                                                const QP& qp, T* Pn, int t) {
   T R[NU * NU], fR[10];
 #pragma unroll
   for (int r = 0; r < NU; ++r)
 #pragma unroll
-    for (int c = 0; c < NU; ++c) R[r * NU + c] = r_of(qa, r, c);
+    for (int c = 0; c < NU; ++c) R[r * NU + c] = qp.R(r, c);
   chol4(R, fR);
   if (t < NXB) {
     T col[NU];
 #pragma unroll
-    for (int k = 0; k < NU; ++k) col[k] = s_of(qa, k, t);
+    for (int k = 0; k < NU; ++k) col[k] = qp.S(k, t);
     chol4_solve<1>(fR, col, col);
 #pragma unroll
     for (int k = 0; k < NU; ++k) m[Lo.RiS + k * NXB + t] = col[k];
@@ -578,29 +416,29 @@ __device__ __forceinline__ void factor_terminal(T* m, const FacLayout& Lo,
     const T* RiS = m + Lo.RiS;
     T acc[NXB];
     {
-      const T s0 = s_of(qa, 0, r);
+      const T s0 = qp.S(0, r);
 #pragma unroll
       for (int col = 0; col < NXB; ++col) acc[col] = s0 * RiS[col];
     }
 #pragma unroll
     for (int j = 1; j < NU; ++j) {
-      const T sj = s_of(qa, j, r);
+      const T sj = qp.S(j, r);
 #pragma unroll
       for (int col = 0; col < NXB; ++col) acc[col] += sj * RiS[j * NXB + col];
     }
 #pragma unroll
     for (int col = 0; col < NXB; ++col)
-      Pn[r * NXB + col] = q_of(qa, r, col) - acc[col];
+      Pn[r * NXB + col] = qp.Q(r, col) - acc[col];
   }
 }
 
 // stage i < N-1 with P_{i+1} in Pf and the dynamics in G; leaves Qh, then
-// P_i in Pn, K_i in Kg and the packed factor of Rh_i in cR.  Qh = Q + Abar^T P Abar,
-// Rh = R + Bbar^T P Bbar, Sh = S + Bbar^T P Abar, K = -Rh^{-1} Sh,
-// P_i = sym(Qh + Sh^T K), each sum in the plain version's order.
-template <typename T>
+// P_i in Pn, K_i in Kg and the packed factor of Rh_i in cR.  Qh = Q + A^T P
+// A, Rh = R + B^T P B, Sh = S + B^T P A, K = -Rh^{-1} Sh, P_i = sym(Qh +
+// Sh^T K), each sum in the plain version's order.
+template <typename T, typename QP>
 __device__ __forceinline__ void factor_stage(T* m, const FacLayout& Lo,
-                                             const T* qa, const T* G,
+                                             const QP& qp, const T* G,
                                              const T* Pf, T* Pn, T* Kg, T* cR,
                                              const int* pairs, int t) {
   T* AB = m + Lo.AB;
@@ -659,12 +497,11 @@ __device__ __forceinline__ void factor_stage(T* m, const FacLayout& Lo,
         if (r >= NXB + NU) continue;
         if (col >= NXB) {
           if (r >= NXB)
-            Rh[(r - NXB) * NU + col - NXB] =
-                r_of(qa, r - NXB, col - NXB) + acc[q];
+            Rh[(r - NXB) * NU + col - NXB] = qp.R(r - NXB, col - NXB) + acc[q];
         } else if (r >= NXB)
-          Sh[(r - NXB) * NXB + col] = s_of(qa, r - NXB, col) + acc[q];
+          Sh[(r - NXB) * NXB + col] = qp.S(r - NXB, col) + acc[q];
         else
-          Qh[r * NXB + col] = q_of(qa, r, col) + acc[q];
+          Qh[r * NXB + col] = qp.Q(r, col) + acc[q];
       }
     }
   }
@@ -709,25 +546,69 @@ __device__ __forceinline__ void factor_stage(T* m, const FacLayout& Lo,
   K4_CLOCK(6);
 }
 
-template <typename T>
-struct FusedFactorArgs {
-  const T* in[9];    // w_wp, w_input, w_rate, w_vel, w_uprev0, sigma, A, Ax, Bx
-  T* out[5];         // P, K, cRh, RiS, cRt
-};
-
-// K4a
-template <typename T>
-__global__ void __launch_bounds__(WARP * MAX_LANES, K4Ctas<T>::min)
-lqr_factor_fused_kernel(
-    const FusedConsts<T> cst, const int N, const int B, const int lanes_log2,
-    const int stride, const FusedFactorArgs<T> a) {
-  T* sm = smem_lanes<T>();
-  const Cta cta{static_cast<int>(blockIdx.x) << lanes_log2, B, lanes_log2,
-                stride};
+// The factor from its terminal stage down to stage 0, once the CTA has
+// passed a barrier behind the terminal stage's QP blocks and stage N-2's
+// (its dynamics in, or on their way to, G's first buffer).  fetch(i, b)
+// issues stage i's copies into buffer b; qp(i, b) is stage i's QP blocks,
+// from buffer b (b = 1 for the terminal stage).  a.out: P, K, cRh, RiS,
+// cRt.
+template <typename T, typename Io, typename Fetch, typename QpOf>
+__device__ __forceinline__ void factor_sweep(T* sm, const Cta& cta,
+                                             const FacLayout& Lo, int N,
+                                             const Io& a, const Fetch& fetch,
+                                             const QpOf& qp) {
   const int slot = threadIdx.x / WARP, t = threadIdx.x % WARP;
-  const bool active = cta.b0 + slot < B;
-  const FacLayout Lo = fac_layout(N);
-  T* m = sm + slot * stride;
+  const bool active = cta.b0 + slot < cta.B;
+  T* m = sm + slot * cta.stride;
+  const size_t B = cta.B;
+  int pairs[PAIRS];
+#pragma unroll
+  for (int k = 0; k < PAIRS; ++k)
+    pairs[k] = t + WARP * k < NPAIR ? tri_pair(t + WARP * k) : 0;
+
+  if (active) factor_terminal(m, Lo, qp(N - 1, 1), m + Lo.P, t);
+  copy_async_wait();
+  __syncthreads();
+  put_rows(sm, cta, Lo.P, a.out[0] + size_t(N - 1) * NN * B, NN);
+  put_rows(sm, cta, Lo.RiS, a.out[3], NU * NXB);
+  put_rows(sm, cta, Lo.cRt, a.out[4], 10);
+  K4_CLOCK(2);
+
+  for (int i = N - 2, s = 0; i >= 0; --i, s ^= 1) {
+    // buffers of this stage: G[s], P_{i+1} in P[s], P_i into P[1-s], K[s]
+    if (i > 0) fetch(i - 1, s ^ 1);
+    K4_CLOCK(9);
+    if (active)
+      factor_stage(m, Lo, qp(i, s), m + Lo.G + s * GN, m + Lo.P + s * NN,
+                   m + Lo.P + (s ^ 1) * NN, m + Lo.K + s * NU * NXB,
+                   m + Lo.cR + s * 10, pairs, t);
+    copy_async_wait();
+    __syncthreads();
+    K4_CLOCK(7);
+    put_rows(sm, cta, Lo.P + (s ^ 1) * NN, a.out[0] + size_t(i) * NN * B, NN);
+    put_rows(sm, cta, Lo.K + s * NU * NXB, a.out[1] + size_t(i) * NU * NXB * B,
+             NU * NXB);
+    put_rows(sm, cta, Lo.cR + s * 10, a.out[2] + size_t(i) * 10 * B, 10);
+    K4_CLOCK(8);
+  }
+}
+
+__device__ __forceinline__ Cta cta_of(int B, int lanes_log2, int stride) {
+  return Cta{static_cast<int>(blockIdx.x) << lanes_log2, B, lanes_log2,
+             stride};
+}
+
+// K4a.  a.in: w_wp, w_input, w_rate, w_vel, w_uprev0, sigma, A, Ax, Bx
+template <typename T>
+__global__ void __launch_bounds__(WARP * MAX_LANES, CtasPerSm<T>::min)
+lqr_factor_fused_kernel(const int N, const int B, const int lanes_log2,
+                        const int stride, const Args<T, 9, 5> a,
+                        const FusedConsts<T> cst) {
+  T* sm = smem_lanes<T>();
+  const Cta cta = cta_of(B, lanes_log2, stride);
+  const int t = threadIdx.x % WARP;
+  const FacLayout Lo = fac_layout(N, false);
+  T* m = sm + (threadIdx.x / WARP) * stride;
   const T* __restrict__ Ax = a.in[7];
   const T* __restrict__ Bx = a.in[8];
   K4_CLOCK(0);
@@ -737,11 +618,7 @@ lqr_factor_fused_kernel(
   g_constants(m + Lo.G, t);
   g_constants(m + Lo.G + GN, t);
   if (t < NXB) m[Lo.AB + (NXB + NU) * NXB + t] = T(0);
-  get_dyn(sm, cta, Lo.G, Ax, Bx, N - 2);
-  int pairs[PAIRS];
-#pragma unroll
-  for (int k = 0; k < PAIRS; ++k)
-    pairs[k] = t + WARP * k < NPAIR ? tri_pair(t + WARP * k) : 0;
+  get_dyn<NX>(sm, cta, Lo.G, Ax, Bx, N - 2);
 
   // prologue: every (lane, stage)'s QA values, neighbouring threads on
   // neighbouring lanes
@@ -755,89 +632,90 @@ lqr_factor_fused_kernel(
       assemble_qa(a.in[5] + size_t(i) * ns * B + b,
                   a.in[6] + size_t(i) * cst.nh * 3 * B + b, a.in[0][e],
                   a.in[1][e], a.in[2][e], a.in[3][e], a.in[4][e], size_t(B),
-                  cst, sm + l * stride + Lo.qa + i * QA);
+                  cst, sm + l * stride + Lo.qp + i * QA);
     }
   }
   __syncthreads();
   K4_CLOCK(1);
-  if (active) factor_terminal(m, Lo, N, m + Lo.P, t);
+  factor_sweep<T>(
+      sm, cta, Lo, N, a,
+      [&](int i, int buf) { get_dyn<NX>(sm, cta, Lo.G + buf * GN, Ax, Bx, i); },
+      [&](int i, int) { return QaStage<T>{m + Lo.qp + i * QA}; });
+}
+
+// K5a.  a.in: Q, R, S, A, B
+template <typename T>
+__global__ void __launch_bounds__(WARP * MAX_LANES, CtasPerSm<T>::min)
+lqr_factor_kernel(const int N, const int B, const int lanes_log2,
+                  const int stride, const Args<T, 5, 5> a) {
+  T* sm = smem_lanes<T>();
+  const Cta cta = cta_of(B, lanes_log2, stride);
+  const int t = threadIdx.x % WARP;
+  const FacLayout Lo = fac_layout(N, true);
+  T* m = sm + (threadIdx.x / WARP) * stride;
+  K4_CLOCK(0);
+
+  // stage i's [Q; R; S] into buffer buf
+  const auto get_qrs = [&](int i, int buf) {
+    const int off = Lo.qp + buf * QRS;
+    get_rows(sm, cta, off, a.in[0] + size_t(i) * NN * B, NN);
+    get_rows(sm, cta, off + NN, a.in[1] + size_t(i) * NU * NU * B, NU * NU);
+    get_rows(sm, cta, off + NN + NU * NU, a.in[2] + size_t(i) * NU * NXB * B,
+             NU * NXB);
+  };
+  const auto fetch = [&](int i, int buf) {
+    get_qrs(i, buf);
+    get_dyn<NXB>(sm, cta, Lo.G + buf * GN, a.in[3], a.in[4], i);
+  };
+  // AB's zero row; the terminal stage's blocks into buffer 1, stage N-2's
+  // into buffer 0
+  if (t < NXB) m[Lo.AB + (NXB + NU) * NXB + t] = T(0);
+  get_qrs(N - 1, 1);
+  fetch(N - 2, 0);
   copy_async_wait();
   __syncthreads();
-  put_rows(sm, cta, Lo.P, a.out[0] + size_t(N - 1) * NN * B, NN);
-  put_rows(sm, cta, Lo.RiS, a.out[3], NU * NXB);
-  put_rows(sm, cta, Lo.cRt, a.out[4], 10);
-  K4_CLOCK(2);
-
-  for (int i = N - 2, s = 0; i >= 0; --i, s ^= 1) {
-    // buffers of this stage: G[s], P_{i+1} in P[s], P_i into P[1-s], K[s]
-    if (i > 0) get_dyn(sm, cta, Lo.G + (s ^ 1) * GN, Ax, Bx, i - 1);
-    K4_CLOCK(9);
-    if (active)
-      factor_stage(m, Lo, m + Lo.qa + i * QA, m + Lo.G + s * GN,
-                   m + Lo.P + s * NN, m + Lo.P + (s ^ 1) * NN,
-                   m + Lo.K + s * NU * NXB, m + Lo.cR + s * 10, pairs, t);
-    copy_async_wait();
-    __syncthreads();
-    K4_CLOCK(7);
-    put_rows(sm, cta, Lo.P + (s ^ 1) * NN, a.out[0] + size_t(i) * NN * B, NN);
-    put_rows(sm, cta, Lo.K + s * NU * NXB, a.out[1] + size_t(i) * NU * NXB * B,
-             NU * NXB);
-    put_rows(sm, cta, Lo.cR + s * 10, a.out[2] + size_t(i) * 10 * B, 10);
-    K4_CLOCK(8);
-  }
+  K4_CLOCK(1);
+  factor_sweep<T>(sm, cta, Lo, N, a, fetch, [&](int, int buf) {
+    return QrsStage<T>{m + Lo.qp + buf * QRS};
+  });
 }
 
-// ---- K4b: the backsolve on the lane's warp ---------------------------------
-template <typename T>
-struct FusedSolveArgs {
-  const T* in[11];   // P, K, cRh, RiS, cRt, Ax, Bx, c, qx, qu, dx0
-  T* out[4];         // dxb, du, nu, dtheta
-};
-
-// Abar = [[Ax, 0], [0, 0]] and Bbar = [[Bx], [I4]]: the entry (j, col) of
-// [Abar | Bbar] (13 x 17), zeros and ones included
-template <typename T>
-__device__ __forceinline__ T g_of(const T* Ax, const T* Bx, int j, int col) {
-  if (j < NX) {
-    if (col < NX) return Ax[j * NX + col];
-    return col < NXB ? T(0) : Bx[j * NU + col - NXB];
-  }
-  return col == NXB + j - NX ? T(1) : T(0);
-}
-
+// ---- the backsolve on the lane's warp (K4b and K5b) ------------------------
 // the solve's stage loads, in the order the stages are taken: n < N-1 the
 // backward stage N-2-n (P_{i+1}, the dynamics, c, qx, qu, K, cRh of stage
 // i), then the forward stage n-(N-1) (P_i and, for i < N-1, the dynamics,
-// c and K of stage i)
-template <typename T>
+// c and K of stage i).  a.in: P, K, cRh, RiS, cRt, A, B, c, qx, qu, dx0
+template <bool FULL, typename T>
 __device__ __forceinline__ void get_stage(T* sm, const Cta& c, int off,
-                                          const FusedSolveArgs<T>& a, int N,
+                                          const Args<T, 11, 4>& a, int N,
                                           int n) {
+  using S = Block<FULL>;
   const bool backward = n < N - 1;
   const int i = backward ? N - 2 - n : n - (N - 1);
   const size_t B = c.B;
-  get_rows(sm, c, off + SB_P, a.in[0] + size_t(backward ? i + 1 : i) * NN * B,
+  get_rows(sm, c, off + S::P, a.in[0] + size_t(backward ? i + 1 : i) * NN * B,
            NN);
   if (i == N - 1) return;
-  get_rows(sm, c, off + SB_AX, a.in[5] + size_t(i) * NX * NX * B, NX * NX);
-  get_rows(sm, c, off + SB_BX, a.in[6] + size_t(i) * NX * NU * B, NX * NU);
-  get_rows(sm, c, off + SB_C, a.in[7] + size_t(i) * NXB * B, NXB);
-  get_rows(sm, c, off + SB_K, a.in[1] + size_t(i) * NU * NXB * B, NU * NXB);
+  get_rows(sm, c, off + S::A, a.in[5] + size_t(i) * S::AN * B, S::AN);
+  get_rows(sm, c, off + S::B, a.in[6] + size_t(i) * S::BN * B, S::BN);
+  get_rows(sm, c, off + S::C, a.in[7] + size_t(i) * NXB * B, NXB);
+  get_rows(sm, c, off + S::K, a.in[1] + size_t(i) * NU * NXB * B, NU * NXB);
   if (!backward) return;
-  get_rows(sm, c, off + SB_Q, a.in[8] + size_t(i) * NXB * B, NXB);
-  get_rows(sm, c, off + SB_Q + NXB, a.in[9] + size_t(i) * NU * B, NU);
-  get_rows(sm, c, off + SB_CR, a.in[2] + size_t(i) * 10 * B, 10);
+  get_rows(sm, c, off + S::Q, a.in[8] + size_t(i) * NXB * B, NXB);
+  get_rows(sm, c, off + S::Q + NXB, a.in[9] + size_t(i) * NU * B, NU);
+  get_rows(sm, c, off + S::CR, a.in[2] + size_t(i) * 10 * B, 10);
 }
 
 // backward stage i: Pc = p_{i+1} + P_{i+1} c, [qxh; quh] = [qx; qu] +
-// [Abar^T; Bbar^T] Pc, k_i = -Rh^{-1} quh, p_i = qxh + K^T quh
-template <typename T>
+// [A^T; B^T] Pc, k_i = -Rh^{-1} quh, p_i = qxh + K^T quh
+template <bool FULL, typename T>
 __device__ __forceinline__ void backward_stage(T* m, const SolveLayout& Lo,
                                                const T* blk, int i, int t) {
+  using S = Block<FULL>;
   T* Pc = m + Lo.Pc;
   T* qh = m + Lo.qh;
-  const T* P = blk + SB_P;
-  const T* c = blk + SB_C;
+  const T* P = blk + S::P;
+  const T* c = blk + S::C;
   if (t < NXB) {
     T acc = P[t * NXB] * c[0];
 #pragma unroll
@@ -846,24 +724,22 @@ __device__ __forceinline__ void backward_stage(T* m, const SolveLayout& Lo,
   }
   __syncwarp();
   if (t < NXB + NU) {
-    const T* Ax = blk + SB_AX;
-    const T* Bx = blk + SB_BX;
-    T acc = g_of(Ax, Bx, 0, t) * Pc[0];
+    T acc = S::g(blk, 0, t) * Pc[0];
 #pragma unroll
-    for (int j = 1; j < NXB; ++j) acc += g_of(Ax, Bx, j, t) * Pc[j];
-    qh[t] = blk[SB_Q + t] + acc;
+    for (int j = 1; j < NXB; ++j) acc += S::g(blk, j, t) * Pc[j];
+    qh[t] = blk[S::Q + t] + acc;
   }
   __syncwarp();
   const T* quh = qh + NXB;
   if (t < NXB) {
-    const T* K = blk + SB_K;
+    const T* K = blk + S::K;
     T acc = K[t] * quh[0];
 #pragma unroll
     for (int j = 1; j < NU; ++j) acc += K[j * NXB + t] * quh[j];
     m[Lo.p + i * NXB + t] = qh[t] + acc;
   } else if (t == NXB) {
     T kv[NU];
-    chol4_solve<1>(blk + SB_CR, quh, kv);
+    chol4_solve<1>(blk + S::CR, quh, kv);
 #pragma unroll
     for (int k = 0; k < NU; ++k) m[Lo.kk + i * NU + k] = -kv[k];
   }
@@ -898,14 +774,15 @@ __device__ __forceinline__ void initial_step(T* m, const SolveLayout& Lo,
 
 // forward stage i, dxb_i in dx: du_i (threads 0-3) beside the costates
 // nu_i = P_i dxb_i + p_i (threads 16-28, in place of p_i); then dxb_{i+1}
-// = (Abar dxb + Bbar du) + c into dxn (threads 0-12)
-template <typename T>
+// = (A dxb + B du) + c into dxn (threads 0-12)
+template <bool FULL, typename T>
 __device__ __forceinline__ void forward_stage(T* m, const SolveLayout& Lo,
                                               const T* blk, int N, int i,
                                               const T* dx, T* du, T* dxn,
                                               int t) {
+  using S = Block<FULL>;
   if (t < NU) {
-    const T* Kr = i < N - 1 ? blk + SB_K + t * NXB : m + Lo.RiS + t * NXB;
+    const T* Kr = i < N - 1 ? blk + S::K + t * NXB : m + Lo.RiS + t * NXB;
     T acc = Kr[0] * dx[0];
 #pragma unroll
     for (int j = 1; j < NXB; ++j) acc += Kr[j] * dx[j];
@@ -913,7 +790,7 @@ __device__ __forceinline__ void forward_stage(T* m, const SolveLayout& Lo,
                       : -(m[Lo.Riqu + t] + acc);
   } else if (t >= 16 && t < 16 + NXB) {
     const int k = t - 16;
-    const T* P = blk + SB_P + k * NXB;
+    const T* P = blk + S::P + k * NXB;
     T acc = P[0] * dx[0];
 #pragma unroll
     for (int j = 1; j < NXB; ++j) acc += P[j] * dx[j];
@@ -921,35 +798,33 @@ __device__ __forceinline__ void forward_stage(T* m, const SolveLayout& Lo,
   }
   __syncwarp();
   if (i < N - 1 && t < NXB) {
-    const T* Ax = blk + SB_AX;
-    const T* Bx = blk + SB_BX;
-    T acc = g_of(Ax, Bx, t, 0) * dx[0];
+    T acc = S::g(blk, t, 0) * dx[0];
 #pragma unroll
-    for (int j = 1; j < NXB; ++j) acc += g_of(Ax, Bx, t, j) * dx[j];
-    T bu = g_of(Ax, Bx, t, NXB) * du[0];
+    for (int j = 1; j < NXB; ++j) acc += S::g(blk, t, j) * dx[j];
+    T bu = S::g(blk, t, NXB) * du[0];
 #pragma unroll
-    for (int j = 1; j < NU; ++j) bu += g_of(Ax, Bx, t, NXB + j) * du[j];
-    dxn[t] = (acc + bu) + blk[SB_C + t];
+    for (int j = 1; j < NU; ++j) bu += S::g(blk, t, NXB + j) * du[j];
+    dxn[t] = (acc + bu) + blk[S::C + t];
   }
 }
 
-// K4b
-template <typename T>
-__global__ void __launch_bounds__(WARP * MAX_LANES, K4Ctas<T>::min)
-lqr_backsolve_fused_kernel(const int N, const int B, const int lanes_log2,
-                           const int stride, const FusedSolveArgs<T> a) {
+// K4b (FULL = false) and K5b (FULL = true).  a.out: dxb, du, nu, dtheta
+template <typename T, bool FULL>
+__global__ void __launch_bounds__(WARP * MAX_LANES, CtasPerSm<T>::min)
+lqr_backsolve_kernel(const int N, const int B, const int lanes_log2,
+                     const int stride, const Args<T, 11, 4> a) {
   T* sm = smem_lanes<T>();
-  const Cta cta{static_cast<int>(blockIdx.x) << lanes_log2, B, lanes_log2,
-                stride};
+  const Cta cta = cta_of(B, lanes_log2, stride);
   const int slot = threadIdx.x / WARP, t = threadIdx.x % WARP;
   const bool active = cta.b0 + slot < B;
   const size_t b = size_t(cta.b0) + slot;
-  const SolveLayout Lo = solve_layout(N);
+  constexpr int SB = Block<FULL>::size;
+  const SolveLayout Lo = solve_layout(N, SB);
   T* m = sm + slot * stride;
   const int loads = 2 * N - 1;   // N-1 backward stages, N forward
   K4_CLOCK(0);
 
-  get_stage(sm, cta, Lo.blk, a, N, 0);
+  get_stage<FULL>(sm, cta, Lo.blk, a, N, 0);
   // terminal stage: p_{N-1} = qx - RiS^T qu, Riqu = R^{-1} qu; RiS kept
   if (active) {
     const T* qu = a.in[9] + size_t(N - 1) * NU * B + b;
@@ -981,19 +856,21 @@ lqr_backsolve_fused_kernel(const int N, const int B, const int lanes_log2,
 
   for (int n = 0; n < loads; ++n) {
     if (n + 1 < loads)
-      get_stage(sm, cta, Lo.blk + ((n + 1) % 2) * SB, a, N, n + 1);
+      get_stage<FULL>(sm, cta, Lo.blk + ((n + 1) % 2) * SB, a, N, n + 1);
     const T* blk = m + Lo.blk + (n % 2) * SB;
     const int i = n - (N - 1);   // the forward stage, from n = N-1 on
     K4_CLOCK(14);
     if (active) {
       if (i < 0) {
-        backward_stage(m, Lo, blk, N - 2 - n, t);
+        backward_stage<FULL>(m, Lo, blk, N - 2 - n, t);
         K4_CLOCK(11);
       } else {
         T* dx = m + Lo.dx + (i % 3) * NXB;
-        if (i == 0) initial_step(m, Lo, blk + SB_P, a.in[10] + b, size_t(B), dx, t);
-        forward_stage(m, Lo, blk, N, i, dx, m + Lo.du + (i % 2) * NU,
-                      m + Lo.dx + ((i + 1) % 3) * NXB, t);
+        if (i == 0)
+          initial_step(m, Lo, blk + Block<FULL>::P, a.in[10] + b, size_t(B),
+                       dx, t);
+        forward_stage<FULL>(m, Lo, blk, N, i, dx, m + Lo.du + (i % 2) * NU,
+                            m + Lo.dx + ((i + 1) % 3) * NXB, t);
         K4_CLOCK(12);
       }
     }
@@ -1031,45 +908,32 @@ int opt_in(F kernel, size_t smem, int* set) {
   return 0;
 }
 
-// K4a and K4b launch `lanes` lanes a CTA, `stride` values of T apart
-template <typename T>
-int launch_factor_fused(const FusedConsts<T>& c, int N, int B, int lanes_log2,
-                        int stride, const T* const* ins, T* const* outs,
-                        cudaStream_t stream) {
-  static int set[64] = {};
-  const int lanes = 1 << lanes_log2;
-  if (N < 2 || B < 1 || lanes > MAX_LANES || fac_layout(N).total > stride)
+// a launch of 2^lanes_log2 lanes a CTA, `stride` values of T apart, each
+// lane `elements` values of its layout; `set` is the kernel's own opt-in
+// record
+template <typename T, typename Kernel, typename... Rest>
+int launch_lanes(Kernel kernel, int* set, int elements, int N, int B,
+                 int lanes_log2, int stride, cudaStream_t stream,
+                 Rest... rest) {
+  if (N < 2 || B < 1 || lanes_log2 < 0 || lanes_log2 > MAX_LANES_LOG2 ||
+      elements > stride)
     return static_cast<int>(cudaErrorInvalidValue);
+  const int lanes = 1 << lanes_log2;
   const size_t smem = size_t(lanes) * stride * sizeof(T);
-  const int rc = opt_in(lqr_factor_fused_kernel<T>, smem, set);
+  const int rc = opt_in(kernel, smem, set);
   if (rc != 0) return rc;
-  FusedFactorArgs<T> args;
-  for (int k = 0; k < 9; ++k) args.in[k] = ins[k];
-  for (int k = 0; k < 5; ++k) args.out[k] = outs[k];
   const int blocks = (B + lanes - 1) / lanes;
-  lqr_factor_fused_kernel<T><<<blocks, WARP * lanes, smem, stream>>>(
-      c, N, B, lanes_log2, stride, args);
+  kernel<<<blocks, WARP * lanes, smem, stream>>>(N, B, lanes_log2, stride,
+                                                 rest...);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch_backsolve_fused(int N, int B, int lanes_log2, int stride,
-                           const T* const* ins, T* const* outs,
-                           cudaStream_t stream) {
-  static int set[64] = {};
-  const int lanes = 1 << lanes_log2;
-  if (N < 2 || B < 1 || lanes > MAX_LANES || solve_layout(N).total > stride)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = size_t(lanes) * stride * sizeof(T);
-  const int rc = opt_in(lqr_backsolve_fused_kernel<T>, smem, set);
-  if (rc != 0) return rc;
-  FusedSolveArgs<T> args;
-  for (int k = 0; k < 11; ++k) args.in[k] = ins[k];
-  for (int k = 0; k < 4; ++k) args.out[k] = outs[k];
-  const int blocks = (B + lanes - 1) / lanes;
-  lqr_backsolve_fused_kernel<T><<<blocks, WARP * lanes, smem, stream>>>(
-      N, B, lanes_log2, stride, args);
-  return static_cast<int>(cudaGetLastError());
+template <typename T, int NI, int NO>
+Args<T, NI, NO> args_of(const T* const* ins, T* const* outs) {
+  Args<T, NI, NO> a;
+  for (int k = 0; k < NI; ++k) a.in[k] = ins[k];
+  for (int k = 0; k < NO; ++k) a.out[k] = outs[k];
+  return a;
 }
 
 }  // namespace frp
@@ -1077,12 +941,6 @@ int launch_backsolve_fused(int N, int B, int lanes_log2, int stride,
 using namespace frp;
 
 extern "C" {
-
-// backsolve scratch values per lane for horizon N (K5b): p (N x 13), k
-// ((N-1) x 4)
-size_t lqr_backsolve_scratch_per_lane(int N) {
-  return static_cast<size_t>(N) * NXB + static_cast<size_t>(N - 1) * NU;
-}
 
 #ifdef FRP_K4_CLOCKS
 // the phase cycles of the launches since the last call (then zeroed)
@@ -1094,42 +952,54 @@ int lqr_phase_cycles(long long* out) {
 }
 #endif
 
-// values of T per lane of K4a's (backsolve = 0) or K4b's shared-memory
-// layout (ops/lqr_kernel.py::lane_elements computes the same)
-int lqr_fused_lane_elements(int N, int backsolve) {
-  return backsolve ? solve_layout(N).total : fac_layout(N).total;
+// values of T per lane of a kernel's shared-memory layout: the factor
+// (backsolve = 0) or the backsolve, of K4 (blocks = 0) or K5
+// (ops/lqr_kernel.py::lane_elements computes the same)
+int lqr_lane_elements(int N, int backsolve, int blocks) {
+  if (!backsolve) return fac_layout(N, blocks != 0).total;
+  return solve_layout(N, blocks ? Block<true>::size : Block<false>::size)
+      .total;
 }
 
+// every entry: N, B[, nh, reg, rmax2], lanes_log2, stride, the inputs and
+// the outputs (device pointers, in the order of the Args comments above),
+// the stream
 #define LQR_ENTRIES(SUF, T)                                                    \
   int lqr_factor_fused_##SUF(int N, int B, int nh, T reg, T rmax2,             \
                              int lanes_log2, int stride, const T* const* ins,  \
                              T* const* outs, cudaStream_t stream) {            \
+    static int set[64] = {};                                                   \
     if (nh < 1 || nh > NH) return static_cast<int>(cudaErrorInvalidValue);     \
-    return launch_factor_fused<T>(FusedConsts<T>{reg, rmax2, nh}, N, B,        \
-                                  lanes_log2, stride, ins, outs, stream);      \
+    return launch_lanes<T>(lqr_factor_fused_kernel<T>, set,                    \
+                           fac_layout(N, false).total, N, B, lanes_log2,       \
+                           stride, stream, args_of<T, 9, 5>(ins, outs),        \
+                           FusedConsts<T>{reg, rmax2, nh});                    \
   }                                                                            \
   int lqr_backsolve_fused_##SUF(int N, int B, int lanes_log2, int stride,      \
                                 const T* const* ins, T* const* outs,           \
                                 cudaStream_t stream) {                         \
-    return launch_backsolve_fused<T>(N, B, lanes_log2, stride, ins, outs,      \
-                                     stream);                                  \
+    static int set[64] = {};                                                   \
+    return launch_lanes<T>(lqr_backsolve_kernel<T, false>, set,                \
+                           solve_layout(N, Block<false>::size).total, N, B,    \
+                           lanes_log2, stride, stream,                         \
+                           args_of<T, 11, 4>(ins, outs));                      \
   }                                                                            \
-  int lqr_factor_##SUF(int N, int B, const T* Q, const T* R, const T* S,       \
-                       const T* A, const T* Bm, T* P, T* K, T* cRh, T* RiS,    \
-                       T* cRt, cudaStream_t stream) {                          \
-    lqr_factor_kernel<T><<<blocks_for(B), THREADS, 0, stream>>>(               \
-        N, B, Q, R, S, A, Bm, P, K, cRh, RiS, cRt);                            \
-    return static_cast<int>(cudaGetLastError());                               \
+  int lqr_factor_##SUF(int N, int B, int lanes_log2, int stride,               \
+                       const T* const* ins, T* const* outs,                    \
+                       cudaStream_t stream) {                                  \
+    static int set[64] = {};                                                   \
+    return launch_lanes<T>(lqr_factor_kernel<T>, set,                          \
+                           fac_layout(N, true).total, N, B, lanes_log2,        \
+                           stride, stream, args_of<T, 5, 5>(ins, outs));       \
   }                                                                            \
-  int lqr_backsolve_##SUF(int N, int B, const T* P, const T* K,                \
-                          const T* cRh, const T* RiS, const T* cRt,            \
-                          const T* A, const T* Bm, const T* c, const T* qx,    \
-                          const T* qu, const T* dx0, T* dxb, T* du, T* nu,     \
-                          T* dth, T* scratch, cudaStream_t stream) {           \
-    lqr_backsolve_kernel<T><<<blocks_for(B), THREADS, 0, stream>>>(            \
-        N, B, P, K, cRh, RiS, cRt, A, Bm, c, qx, qu, dx0, dxb, du, nu, dth,    \
-        scratch);                                                              \
-    return static_cast<int>(cudaGetLastError());                               \
+  int lqr_backsolve_##SUF(int N, int B, int lanes_log2, int stride,            \
+                          const T* const* ins, T* const* outs,                 \
+                          cudaStream_t stream) {                               \
+    static int set[64] = {};                                                   \
+    return launch_lanes<T>(lqr_backsolve_kernel<T, true>, set,                 \
+                           solve_layout(N, Block<true>::size).total, N, B,     \
+                           lanes_log2, stride, stream,                         \
+                           args_of<T, 11, 4>(ins, outs));                      \
   }
 
 LQR_ENTRIES(f32, float)

@@ -1,7 +1,7 @@
 // Device code of the Riccati kernels (lqr.cu, K4 and K5): the dimensions of
-// the 13-wide Riccati state [x(9), u_prev(4)], lane-minor views and the
-// packed 4x4 Cholesky factor and solve.  The whole-iteration kernel
-// (ipm_iteration.cu, K1) shares its dimensions.
+// the 13-wide Riccati state [x(9), u_prev(4)] and the packed 4x4 Cholesky
+// factor and solve.  The whole-iteration kernel (ipm_iteration.cu, K1)
+// shares its dimensions.
 #pragma once
 
 #include "common.cuh"
@@ -12,27 +12,6 @@ constexpr int NXB = 13;  // Riccati augmented state [x(9), u_prev(4)]
 constexpr int NU = 4;
 constexpr int NX = 9;
 constexpr int NH = 30;   // corridor rows per stage (K1's layout; K4's maximum)
-
-// ---- lane-minor views ------------------------------------------------------
-// A tensor (d0, d1, ..., B) viewed from one lane: element k of the
-// flattened non-lane index sits at p[k * B].
-template <typename P>
-struct Lane {
-  P* p;
-  size_t B;
-  __device__ __forceinline__ P& operator[](size_t k) const { return p[k * B]; }
-};
-
-template <typename T, typename P>
-__device__ __forceinline__ void ld(const Lane<P>& v, size_t off, T* dst,
-                                   int n) {
-  for (int k = 0; k < n; ++k) dst[k] = v[off + k];
-}
-template <typename T>
-__device__ __forceinline__ void st(const Lane<T>& v, size_t off,
-                                   const T* src, int n) {
-  for (int k = 0; k < n; ++k) v[off + k] = src[k];
-}
 
 // packed Cholesky factors (l00 l10 l20 l30 l11 l21 l31 l22 l32 l33) of a
 // 4x4 SPD matrix (row-major)

@@ -16,8 +16,9 @@ solver/ipm_lanes.py::lane_step runs it where K1 is off (the Mehrotra
 predictor-corrector, corridors of other than 30 rows).  K4 runs a warp per
 lane and up to MAX_LANES lanes per CTA, each lane's working set in shared
 memory (csrc/lqr.cu's header says how); `launch_geometry` gives the lanes,
-threads and shared memory per CTA for a dtype and horizon.  K5 reads
-pre-assembled Q/R/S/A/B blocks, a thread per lane; solve_lqr_lanes joins
+threads and shared memory per CTA for a kernel, dtype and horizon.  K5
+reads pre-assembled Q/R/S/A/B blocks and runs K4's recursion on the same
+design, with K4's factor body and backsolve kernel; solve_lqr_lanes joins
 K5a and K5b behind solver/riccati.py::solve_lqr_batched.
 
 Route by device: a CPU tensor runs the plain version beside each wrapper
@@ -43,8 +44,8 @@ from forces_resilient_planner_tpu_torch.utils.lanes import sum_dim
 SOURCE = "lqr.cu"
 NX, NXB, NU = 9, 13, 4
 NH = 30  # the most corridor rows per stage K4 takes
-WARP = 32               # K4: threads per lane
-MAX_LANES = 8           # K4: lanes per CTA
+WARP = 32               # threads per lane
+MAX_LANES = 8           # lanes per CTA
 SMEM_PER_CTA = 232_448  # shared memory one CTA may use on sm_90 (bytes)
 
 # kernel launches per kernel, over all calls in this process
@@ -53,36 +54,26 @@ LAUNCHES = dict.fromkeys(
     0,
 )
 
-# K5b's scratch (each lane's p and k stacks) per (device, dtype, N, B)
-_scratch: dict = {}
-
 _SUFFIX = {torch.float32: ("f32", ctypes.c_float),
            torch.float64: ("f64", ctypes.c_double)}
 
 
 def _bind(lib):
-    lib.lqr_backsolve_scratch_per_lane.argtypes = [ctypes.c_int]
-    lib.lqr_backsolve_scratch_per_lane.restype = ctypes.c_size_t
-    lib.lqr_fused_lane_elements.argtypes = [ctypes.c_int, ctypes.c_int]
-    lib.lqr_fused_lane_elements.restype = ctypes.c_int
     i, p = ctypes.c_int, ctypes.c_void_p
+    lib.lqr_lane_elements.argtypes = [i, i, i]
+    lib.lqr_lane_elements.restype = i
     for suffix, ctype in _SUFFIX.values():
-        # (N, B[, nh, reg, rmax2][, lanes_log2, stride]), inputs, outputs
-        # [, scratch], stream
-        argtypes = {
-            "lqr_factor_fused": [i, i, i, ctype, ctype, i, i, p, p],
-            "lqr_factor": [i, i] + [p] * 5 + [p] * 5,
-            "lqr_backsolve_fused": [i, i, i, i, p, p],
-            "lqr_backsolve": [i, i] + [p] * 11 + [p] * 4 + [p],
-        }
-        for name, args in argtypes.items():
+        # (N, B[, nh, reg, rmax2], lanes_log2, stride), inputs, outputs,
+        # stream
+        for name in LAUNCHES:
             fn = getattr(lib, f"{name}_{suffix}")
-            fn.argtypes = args + [p]
-            fn.restype = ctypes.c_int
+            scalars = [i, ctype, ctype] if name == "lqr_factor_fused" else []
+            fn.argtypes = [i, i, *scalars, i, i, p, p, p]
+            fn.restype = i
 
 
 # ---------------------------------------------------------------------------
-# K4's launch geometry (csrc/lqr.cu: fac_layout, solve_layout)
+# the launch geometry (csrc/lqr.cu: fac_layout, solve_layout)
 # ---------------------------------------------------------------------------
 
 class Geometry(NamedTuple):
@@ -92,36 +83,43 @@ class Geometry(NamedTuple):
     stride: int   # values of the dtype between two lanes' memory
 
 
-def lane_elements(N: int, backsolve: bool = False) -> int:
-    """Values of one lane's shared-memory layout at horizon N.
-    K4a (csrc/lqr.cu::fac_layout): every stage's 24 QP values, two stages'
-    G = [Abar | Bbar] (13 x 17), two P (P_{i+1}; Qh, then P_i), [AtP; BtP]
-    and a zero row (18 x 13), Sh, Rh, two K, two packed factors of Rh, RiS,
-    cRt.  K4b (solve_layout): the p / nu and k stacks, three dxb and two
-    du, two stage blocks (P, Ax, Bx, c, qx, qu, K, cRh), Pc, qxh / quh,
-    RiS and R^{-1} qu."""
+def lane_elements(N: int, backsolve: bool = False,
+                  blocks: bool = False) -> int:
+    """Values of one lane's shared-memory layout at horizon N: K4a's, or
+    with backsolve K4b's, or with blocks K5a's / K5b's.
+    The factor (csrc/lqr.cu::fac_layout): every stage's 24 QP values (K5a:
+    two stages' [Q; R; S], 237 values each), two stages' G = [A | B] (13 x
+    17), two P (P_{i+1}; Qh, then P_i), [AtP; BtP] and a zero row (18 x 13),
+    Sh, Rh, two K, two packed factors of Rh, RiS, cRt.  The backsolve
+    (solve_layout): the p / nu and k stacks, three dxb and two du, two
+    stage blocks (P, Ax and Bx (K5b: A and B), c, qx, qu, K, cRh), Pc,
+    qxh / quh, RiS and R^{-1} qu."""
     nn, g = NXB * NXB, NXB * (NXB + NU)
     if backsolve:
-        block = nn + NX * NX + NX * NU + NXB + NXB + NU + NU * NXB + 10
+        dyn = nn + NXB * NU if blocks else NX * NX + NX * NU
+        block = nn + dyn + NXB + NXB + NU + NU * NXB + 10
         return (N * NXB + (N - 1) * NU + 3 * NXB + 2 * NU + 2 * block
                 + NXB + NXB + NU + NU * NXB + NU)
-    return (N * (NXB + 6 + NU + 1) + 2 * g + 2 * nn + 18 * NXB
+    qp = 2 * (nn + NU * NU + NU * NXB) if blocks else N * (NXB + 6 + NU + 1)
+    return (qp + 2 * g + 2 * nn + 18 * NXB
             + NU * NXB + NU * NU + 2 * NU * NXB + 2 * 10 + NU * NXB + 10)
 
 
 def launch_geometry(dtype, N: int, backsolve: bool = False,
-                    max_lanes: int = MAX_LANES) -> Geometry:
-    """K4a's (or, with backsolve, K4b's) geometry at `dtype` and horizon N:
-    the most lanes per CTA, a power of two up to max_lanes, whose memory fits
-    in SMEM_PER_CTA.  The stride pads a lane to a multiple of 32 values plus
-    32 / lanes, so that the CTA's copies, which give a warp 32 / lanes rows
-    of every lane, spread over the shared-memory banks."""
+                    max_lanes: int = MAX_LANES,
+                    blocks: bool = False) -> Geometry:
+    """K4a's geometry at `dtype` and horizon N (with backsolve K4b's, with
+    blocks K5a's or K5b's): the most lanes per CTA, a power of two up to
+    max_lanes, whose memory fits in SMEM_PER_CTA.  The stride pads a lane
+    to a multiple of 32 values plus 32 / lanes, so that the CTA's copies,
+    which give a warp 32 / lanes rows of every lane, spread over the
+    shared-memory banks."""
     if N < 2:
         raise ValueError(f"need N >= 2 stages, got {N}")
     if dtype not in _SUFFIX:
         raise ValueError(f"the CUDA kernels take float32 or float64, not {dtype}")
     size = torch.empty((), dtype=dtype).element_size()
-    elements = -(-lane_elements(N, backsolve) // 32) * 32
+    elements = -(-lane_elements(N, backsolve, blocks) // 32) * 32
     lanes = max_lanes
     while lanes > 1 and lanes * (elements + WARP // lanes) * size > SMEM_PER_CTA:
         lanes //= 2
@@ -251,15 +249,6 @@ def _horizon(N: int, B: int):
         raise ValueError(f"need N >= 2 stages and B >= 1 lanes, got {N}, {B}")
 
 
-def _launch(lib, name: str, like: torch.Tensor, *args):
-    with torch.cuda.device(like.device):
-        stream = torch.cuda.current_stream(like.device).cuda_stream
-        rc = getattr(lib, f"{name}_{_SUFFIX[like.dtype][0]}")(*args, stream)
-    if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
-    LAUNCHES[name] += 1
-
-
 def _factor_shapes(N: int, B: int):
     return ((N, NXB, NXB, B), (N - 1, NU, NXB, B), (N - 1, 10, B), (NU, NXB, B),
             (10, B))
@@ -284,19 +273,22 @@ def _solution_like(qx):
                        qx.new_empty((N, NXB, B)), qx.new_empty((NU, B)))
 
 
-def launch_fused(lib, name: str, ins, outs, stream, scalars=(),
-                 max_lanes: int = MAX_LANES):
-    """One launch of K4a (name "lqr_factor_fused": ins the nine inputs of
-    lqr_factor_fused_lanes, outs the LQRFactor fields, scalars (nh, reg,
-    rmax2)) or K4b ("lqr_backsolve_fused": ins the factor's five fields, Ax,
-    Bx, c, qx, qu, dx0, outs the LQRSolution fields) from `lib` (the nvcc
-    build, or the CPU build of the tests) on checked, contiguous tensors, on
-    `stream`; raises when the launch fails."""
-    backsolve = name == "lqr_backsolve_fused"
-    like = ins[0]
-    N, B = (ins[8].shape[0], ins[8].shape[-1]) if backsolve else ins[0].shape
-    geo = launch_geometry(like.dtype, N, backsolve, max_lanes)
-    if lib.lqr_fused_lane_elements(N, int(backsolve)) > geo.stride:
+def launch(lib, name: str, ins, outs, stream, scalars=(),
+           max_lanes: int = MAX_LANES):
+    """One launch of a kernel of LAUNCHES from `lib` (the nvcc build, or the
+    CPU build of the tests) on checked, contiguous tensors, on `stream`:
+    K4a ("lqr_factor_fused": ins the nine inputs of lqr_factor_fused_lanes,
+    scalars (nh, reg, rmax2)) or K5a ("lqr_factor": ins Q, R, S, A, B),
+    outs the LQRFactor fields; K4b ("lqr_backsolve_fused": ins the factor's
+    five fields, Ax, Bx, c, qx, qu, dx0) or K5b ("lqr_backsolve": the same
+    with A, B), outs the LQRSolution fields.  Raises when the launch
+    fails."""
+    backsolve = name.startswith("lqr_backsolve")
+    blocks = not name.endswith("_fused")
+    like = ins[8] if backsolve else ins[0]
+    N, B = like.shape[0], like.shape[-1]
+    geo = launch_geometry(like.dtype, N, backsolve, max_lanes, blocks)
+    if lib.lqr_lane_elements(N, int(backsolve), int(blocks)) > geo.stride:
         raise RuntimeError("csrc/lqr.cu's lane layout outgrew lane_elements()")
     rc = getattr(lib, f"{name}_{_SUFFIX[like.dtype][0]}")(
         N, B, *scalars, geo.lanes.bit_length() - 1, geo.stride,
@@ -308,12 +300,11 @@ def launch_fused(lib, name: str, ins, outs, stream, scalars=(),
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
 
 
-def _launch_fused(lib, name, ins, outs, scalars=()):
+def _launch(lib, name, ins, outs, scalars=()):
     like = ins[0]
     with torch.cuda.device(like.device):
-        launch_fused(lib, name, ins, outs,
-                     torch.cuda.current_stream(like.device).cuda_stream,
-                     scalars)
+        launch(lib, name, ins, outs,
+               torch.cuda.current_stream(like.device).cuda_stream, scalars)
     LAUNCHES[name] += 1
 
 
@@ -342,8 +333,8 @@ def lqr_factor_fused_lanes(w_wp, w_input, w_rate, w_vel, w_uprev0, sigma,
               ("Ax", Ax, (N - 1, NX, NX, B)), ("Bx", Bx, (N - 1, NX, NU, B))]
     lib = _device_route(named)
     fac = LQRFactor(*(sigma.new_empty(s) for s in _factor_shapes(N, B)))
-    _launch_fused(lib, "lqr_factor_fused", [t for _, t, _ in named], fac,
-                  (nh, reg, rmax2))
+    _launch(lib, "lqr_factor_fused", [t for _, t, _ in named], fac,
+            (nh, reg, rmax2))
     return fac
 
 
@@ -358,8 +349,7 @@ def lqr_backsolve_fused_lanes(fac: LQRFactor, Ax, Bx, c, qx, qu,
     lib = _check_backsolve(fac, Ax, Bx, c, qx, qu, dx0,
                            ((N - 1, NX, NX, B), (N - 1, NX, NU, B)))
     sol = _solution_like(qx)
-    _launch_fused(lib, "lqr_backsolve_fused", [*fac, Ax, Bx, c, qx, qu, dx0],
-                  sol)
+    _launch(lib, "lqr_backsolve_fused", [*fac, Ax, Bx, c, qx, qu, dx0], sol)
     return sol
 
 
@@ -375,8 +365,7 @@ def lqr_factor_lanes(Q, R, S, A, B) -> LQRFactor:
              ("B", B, (N - 1, NXB, NU, Bn))]
     lib = _device_route(named)
     fac = LQRFactor(*(Q.new_empty(s) for s in _factor_shapes(N, Bn)))
-    _launch(lib, "lqr_factor", Q, N, Bn,
-            *(t.data_ptr() for _, t, _ in named), *(t.data_ptr() for t in fac))
+    _launch(lib, "lqr_factor", [t for _, t, _ in named], fac)
     return fac
 
 
@@ -388,13 +377,8 @@ def lqr_backsolve_lanes(fac: LQRFactor, A, B, c, qx, qu, dx0) -> LQRSolution:
     N, Bn = qx.shape[0], qx.shape[-1]
     lib = _check_backsolve(fac, A, B, c, qx, qu, dx0,
                            ((N - 1, NXB, NXB, Bn), (N - 1, NXB, NU, Bn)))
-    key = (qx.device, qx.dtype, N, Bn)
-    if key not in _scratch:
-        _scratch[key] = qx.new_empty(lib.lqr_backsolve_scratch_per_lane(N) * Bn)
     sol = _solution_like(qx)
-    _launch(lib, "lqr_backsolve", qx, N, Bn,
-            *(t.data_ptr() for t in (*fac, A, B, c, qx, qu, dx0, *sol)),
-            _scratch[key].data_ptr())
+    _launch(lib, "lqr_backsolve", [*fac, A, B, c, qx, qu, dx0], sol)
     return sol
 
 

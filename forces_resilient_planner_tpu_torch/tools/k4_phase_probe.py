@@ -1,4 +1,4 @@
-"""Where K4a's and K4b's time goes on the card: their phase clocks.
+"""Where the Riccati kernels' time goes on the card: their phase clocks.
 
     python3 -m forces_resilient_planner_tpu_torch.tools.k4_phase_probe
 
@@ -6,9 +6,11 @@ Builds ops/csrc/lqr.cu once more with -DFRP_K4_CLOCKS (into the git-ignored
 ops/csrc/build/), which sums clock64() deltas of block 0's first lane over
 the kernels' phases, and launches K4a and K4b on the predictor-corrector
 grid's initial-state calls (chip_smoke.record_k4: the bench grid of seed 1,
-f32) at B = 1, 256 and 4096.  Prints the cycles of each phase, summed over
-the stages, and the kernel's ms per launch (CUDA events, 20 launches), with
-the card's name and power limit.  Needs an NVIDIA GPU and nvcc.
+f32), then K5a and K5b on chip_smoke.py's random blocks (seed 0, N = 20,
+f32), each at B = 1, 256 and 4096.  Prints the cycles of each phase,
+summed over the stages, and the kernel's ms per launch (CUDA events, 20
+launches), with the card's name and power limit.  Needs an NVIDIA GPU and
+nvcc.
 """
 from __future__ import annotations
 
@@ -16,19 +18,23 @@ import ctypes
 import subprocess
 import sys
 
+import numpy as np
 import torch
 
 from forces_resilient_planner_tpu_torch.engine import workloads
 from forces_resilient_planner_tpu_torch.ops import _build, lqr_kernel
 
-# csrc/lqr.cu's K4_CLOCK indices
-K4A_PHASES = {1: "prologue (stage QP values)", 2: "terminal stage, out",
-              9: "next stage's copies issued", 3: "G^T P", 4: "Qh, Sh, Rh",
-              5: "Cholesky, K", 6: "P = sym(Qh + Sh^T K)",
-              7: "copy wait, CTA barrier", 8: "stage out"}
-K4B_PHASES = {10: "first copies, terminal", 14: "next stage's copies issued",
-              11: "backward stages", 12: "forward stages",
-              13: "copy wait, CTA barrier", 15: "costates out"}
+# csrc/lqr.cu's K4_CLOCK indices: the factors' (K5a has no prologue; its
+# phase 1 is the first copies and their wait) and the backsolves'
+FACTOR_PHASES = {1: "prologue (K4a: stage QP values; K5a: first copies)",
+                 2: "terminal stage, out", 9: "next stage's copies issued",
+                 3: "G^T P", 4: "Qh, Sh, Rh", 5: "Cholesky, K",
+                 6: "P = sym(Qh + Sh^T K)", 7: "copy wait, CTA barrier",
+                 8: "stage out"}
+SOLVE_PHASES = {10: "first copies, terminal",
+                14: "next stage's copies issued", 11: "backward stages",
+                12: "forward stages", 13: "copy wait, CTA barrier",
+                15: "costates out"}
 
 
 def build_clocked():
@@ -69,25 +75,32 @@ def main() -> int:
     fa, sa = chip_smoke.record_k4(chip_smoke.lane_state(state), params,
                                   cfg_pc)
     fac, Ax, Bx, c, qx, qu, dx0 = sa[0]
-    for B in (1, 256, 4096):
-        ins_a = [a[..., :B].contiguous() for a in fa[:9]]
-        ins_b = [t[..., :B].contiguous()
-                 for t in (*fac, Ax, Bx, c, qx, qu, dx0)]
-        N = ins_a[0].shape[0]
-        out_a = lqr_kernel.LQRFactor(*(ins_a[5].new_empty(s) for s in
-                                       lqr_kernel._factor_shapes(N, B)))
-        out_b = lqr_kernel._solution_like(ins_b[8])
-        for name, ins, outs, scalars, phases in (
-                ("K4a", ins_a, out_a, (fa[6].shape[1], fa[9], fa[10]),
-                 K4A_PHASES),
-                ("K4b", ins_b, out_b, (), K4B_PHASES)):
-            kernel = ("lqr_factor_fused" if name == "K4a"
-                      else "lqr_backsolve_fused")
+    Q, R, S, qx5, qu5, A, Bm, c5, dx05 = (
+        torch.as_tensor(a, dtype=torch.float32, device="cuda")
+        for a in chip_smoke.random_lqr(np.random.default_rng(0),
+                                       chip_smoke.LQR_N, chip_smoke.LQR_B))
+    fac5 = lqr_kernel.lqr_factor_reference(Q, R, S, A, Bm)
+    # (label, kernel, inputs, scalars, phases)
+    jobs = (("K4a", "lqr_factor_fused", fa[:9], (fa[6].shape[1], fa[9],
+                                                  fa[10]), FACTOR_PHASES),
+            ("K4b", "lqr_backsolve_fused", (*fac, Ax, Bx, c, qx, qu, dx0), (),
+             SOLVE_PHASES),
+            ("K5a", "lqr_factor", (Q, R, S, A, Bm), (), FACTOR_PHASES),
+            ("K5b", "lqr_backsolve", (*fac5, A, Bm, c5, qx5, qu5, dx05), (),
+             SOLVE_PHASES))
+    for label, kernel, ins, scalars, phases in jobs:
+        for B in (1, 256, 4096):
+            ins_b = [t[..., :B].contiguous() for t in ins]
+            N = ins_b[0].shape[0]
+            outs = (lqr_kernel._solution_like(ins_b[8])
+                    if "backsolve" in kernel else lqr_kernel.LQRFactor(
+                        *(ins_b[0].new_empty(s)
+                          for s in lqr_kernel._factor_shapes(N, B))))
 
             def run():
-                lqr_kernel.launch_fused(
-                    lib, kernel, ins, outs,
-                    torch.cuda.current_stream().cuda_stream, scalars)
+                lqr_kernel.launch(lib, kernel, ins_b, outs,
+                                  torch.cuda.current_stream().cuda_stream,
+                                  scalars)
 
             ms = chip_smoke.cuda_ms(run, 20)
             cycles(lib)
@@ -95,9 +108,9 @@ def main() -> int:
             torch.cuda.synchronize()
             cyc = cycles(lib)
             total = sum(cyc[k] for k in phases)
-            split = ", ".join(f"{label} {cyc[k]}"
-                              for k, label in phases.items())
-            print(f"{name} B={B} f32 [{card}]: {ms:.4f} ms; block 0 lane 0 "
+            split = ", ".join(f"{what} {cyc[k]}"
+                              for k, what in phases.items())
+            print(f"{label} B={B} f32 [{card}]: {ms:.4f} ms; block 0 lane 0 "
                   f"cycles: total {total}: {split}", flush=True)
     return 0
 

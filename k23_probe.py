@@ -1,8 +1,10 @@
 """Time the tube kernel (K2) and the corridor kernel (K3) on the card through
 their public wrappers, optionally the Riccati kernels K4a and K4b of the
-predictor-corrector, and optionally the end-to-end paths around them.
+predictor-corrector and K5a and K5b of the batched LQR, and optionally the
+end-to-end paths around them.
 
-    python3 k23_probe.py [--reps R] [--m M [M ...]] [--k3-split] [--k4] [--e2e]
+    python3 k23_probe.py [--reps R] [--m M [M ...]] [--k3-split] [--k4] [--k5]
+                         [--e2e]
     python3 k23_probe.py --against DIR --order PCCP [the options above]
 
 Run from the root of a checkout; needs an NVIDIA GPU.  One run prints one
@@ -16,15 +18,18 @@ taken twice, beside the f32 max |kernel - plain| on the same inputs.
 (max_obs_planes = 0) and with every obstacle masked out.  --k4 adds K4a's and
 K4b's times on the predictor-corrector grid's own initial-state calls
 (chip_smoke.record_k4: the bench grid of seed 1, B = 4096, f32) at B = 4096,
-1024, 256 and 1, each beside its f32 max |kernel - plain|.  --e2e adds
+1024, 256 and 1, each beside its f32 max |kernel - plain|.  --k5 adds
+K5a's and K5b's times on phase 9's random blocks (chip_smoke.random_lqr,
+seed 0, N = 20, f32) at B = 4096, 1024, 256 and 1, each beside its f32
+max |kernel - plain|.  --e2e adds
 chip_smoke.py's timings of nmpc_step_batched (easy and drifted), the bench
 grid and nmpc_step at B = 1, and with --k4 the predictor-corrector grid.
 
 --root DIR imports the port and chip_smoke.py from the checkout at DIR (for
 example an earlier commit unpacked with `git archive`): the probe calls only
 the kernels' wrappers and plain versions and chip_smoke.py helpers that
-every version of the port since the full step (--k4: since the
-predictor-corrector) has, so it times either.
+every version of the port since the full step (--k4, --k5: since the
+predictor-corrector and the batched LQR) has, so it times either.
 --against DIR runs the probe once per letter of --order, each in a fresh
 process: C this checkout, P the one at DIR.  Compare two versions only
 within one such call, in turns.
@@ -37,6 +42,8 @@ import json
 import subprocess
 import sys
 from pathlib import Path
+
+import numpy as np
 
 
 def probe(args) -> None:
@@ -78,6 +85,12 @@ def probe(args) -> None:
                       tube_kernel.tube_stage_reference, targs)
     del inputs, Z
 
+    def cut(a, Bw):
+        """a's first Bw lanes (a factor's fields each)"""
+        if isinstance(a, tuple):
+            return type(a)(*(cut(t, Bw) for t in a))
+        return a[..., :Bw].contiguous() if torch.is_tensor(a) else a
+
     def k3(segs, ccfg=cfg.corridor, check=True):
         a = (*segs, ccfg, cfg.model.nh)
         return timed(corridor_kernel.decompose_stages_lanes,
@@ -105,12 +118,6 @@ def probe(args) -> None:
         fa, sa = chip_smoke.record_k4(chip_smoke.lane_state(state), params,
                                       cfg_pc)
         del state, params
-
-        def cut(a, Bw):
-            if isinstance(a, tuple):
-                return type(a)(*(cut(t, Bw) for t in a))
-            return a[..., :Bw].contiguous() if torch.is_tensor(a) else a
-
         for Bw in (4096, 1024, 256, 1):
             out[f"K4a B={Bw}"] = timed(
                 lqr_kernel.lqr_factor_fused_lanes,
@@ -120,6 +127,21 @@ def probe(args) -> None:
                 lqr_kernel.lqr_backsolve_fused_lanes,
                 lqr_kernel.lqr_backsolve_fused_reference,
                 [cut(a, Bw) for a in sa[0]])
+    if args.k5:
+        Q, R, S, qx, qu, A, Bm, c, dx0 = (
+            torch.as_tensor(a, dtype=f32, device=dev)
+            for a in chip_smoke.random_lqr(np.random.default_rng(0),
+                                           chip_smoke.LQR_N,
+                                           chip_smoke.LQR_B))
+        fac = lqr_kernel.lqr_factor_reference(Q, R, S, A, Bm)
+        for Bw in (4096, 1024, 256, 1):
+            out[f"K5a B={Bw}"] = timed(
+                lqr_kernel.lqr_factor_lanes, lqr_kernel.lqr_factor_reference,
+                [cut(a, Bw) for a in (Q, R, S, A, Bm)])
+            out[f"K5b B={Bw}"] = timed(
+                lqr_kernel.lqr_backsolve_lanes,
+                lqr_kernel.lqr_backsolve_reference,
+                [cut(a, Bw) for a in (fac, A, Bm, c, qx, qu, dx0)])
     print(json.dumps(out), flush=True)
 
     if args.e2e:
@@ -147,6 +169,7 @@ def main() -> int:
     ap.add_argument("--m", type=int, nargs="+", default=[256])
     ap.add_argument("--k3-split", action="store_true")
     ap.add_argument("--k4", action="store_true")
+    ap.add_argument("--k5", action="store_true")
     ap.add_argument("--e2e", action="store_true")
     ap.add_argument("--root", default="")
     ap.add_argument("--against", default="")

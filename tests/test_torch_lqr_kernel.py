@@ -4,17 +4,16 @@ runtime that runs each thread of a block as a std::thread) and held against
 the plain PyTorch versions of ops/lqr_kernel.py, which tests/test_torch_lqr.py
 holds against the JAX package.
 
-  K4a / K4b (a warp per lane, up to 8 lanes a CTA): bit for bit equal to
-  their plain versions at f64 and f32, at 30 and at 18 corridor rows, on
-  13 lanes (a ragged second CTA); a lane with an inf in Ax NaN exactly
-  where the plain version is; a lane's bits independent of its slot, of B
-  and of the lanes per CTA;
-  K5a / K5b (a thread per lane): bit for bit equal to their plain versions;
+  K4a / K4b and K5a / K5b (a warp per lane, up to 8 lanes a CTA): bit for
+  bit equal to their plain versions at f64 and f32 (K4 at 30 and at 18
+  corridor rows), on 13 lanes (a ragged second CTA); a lane with an inf in
+  Ax (K5: A) NaN exactly where the plain version is; a lane's bits
+  independent of its slot, of B and of the lanes per CTA;
   the shared-memory layouts of the .cu equal ops/lqr_kernel.lane_elements,
   and launch_geometry fits a CTA.
 
-Inputs are drawn from a seed at N = 6 (4 for K5), a shape the plain
-versions and the kernels treat like N = 20.  The plain versions run with a
+Inputs are drawn from a seed at N = 6, a shape the plain versions and the
+kernels treat like N = 20.  The plain versions run with a
 correctly rounded torch.sqrt (numpy's), as the kernels' and the card's
 square roots are: this CPU build's torch.sqrt misrounds about 0.7% of
 float64 inputs by one ulp."""
@@ -74,13 +73,13 @@ def _emulated(lib, ins, rhs, max_lanes=lqr_kernel.MAX_LANES):
     Nn, Bn = ins[0].shape
     fac = LQRFactor(*(ins[5].new_empty(s)
                       for s in lqr_kernel._factor_shapes(Nn, Bn)))
-    lqr_kernel.launch_fused(lib, "lqr_factor_fused", ins, fac, None,
-                            (ins[6].shape[1], REG, RMAX2), max_lanes)
+    lqr_kernel.launch(lib, "lqr_factor_fused", ins, fac, None,
+                      (ins[6].shape[1], REG, RMAX2), max_lanes)
     c, qx, qu, dx0 = rhs
     sol = lqr_kernel._solution_like(qx)
-    lqr_kernel.launch_fused(lib, "lqr_backsolve_fused",
-                            [*fac, ins[7], ins[8], c, qx, qu, dx0], sol, None,
-                            (), max_lanes)
+    lqr_kernel.launch(lib, "lqr_backsolve_fused",
+                      [*fac, ins[7], ins[8], c, qx, qu, dx0], sol, None, (),
+                      max_lanes)
     return fac, sol
 
 
@@ -100,27 +99,31 @@ def _same_bits(got, want):
 def test_emulated_layouts_equal_lane_elements(lib):
     for n in (2, 6, 20, 40):
         for backsolve in (False, True):
-            assert (lib.lqr_fused_lane_elements(n, int(backsolve))
-                    == lqr_kernel.lane_elements(n, backsolve))
+            for blocks in (False, True):
+                assert (lib.lqr_lane_elements(n, int(backsolve), int(blocks))
+                        == lqr_kernel.lane_elements(n, backsolve, blocks))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, F64])
 @pytest.mark.parametrize("backsolve", [False, True])
 def test_launch_geometry_fits_a_cta(dtype, backsolve):
-    """Eight lanes a CTA at N = 20, the stride 4 values past a multiple of
-    32 (bank-spread copies), and four f32 CTAs (32 lanes) an SM."""
-    geo = lqr_kernel.launch_geometry(dtype, 20, backsolve)
+    """K4's and K5's: eight lanes a CTA at N = 20, the stride 4 values past
+    a multiple of 32 (bank-spread copies), and four f32 CTAs (32 lanes) an
+    SM."""
     size = torch.empty((), dtype=dtype).element_size()
-    assert geo.lanes == 8 and geo.threads == 256
-    assert geo.stride >= lqr_kernel.lane_elements(20, backsolve)
-    assert geo.stride % 32 == 4
-    assert geo.smem == geo.lanes * geo.stride * size <= 232_448
-    if dtype == torch.float32:
-        assert 4 * (geo.smem + 1024) <= 228 * 1024
-    small = lqr_kernel.launch_geometry(dtype, 20, backsolve, max_lanes=2)
-    assert small.lanes == 2 and small.stride % 32 == 16
-    with pytest.raises(ValueError):
-        lqr_kernel.launch_geometry(dtype, 1, backsolve)
+    for blocks in (False, True):
+        geo = lqr_kernel.launch_geometry(dtype, 20, backsolve, blocks=blocks)
+        assert geo.lanes == 8 and geo.threads == 256
+        assert geo.stride >= lqr_kernel.lane_elements(20, backsolve, blocks)
+        assert geo.stride % 32 == 4
+        assert geo.smem == geo.lanes * geo.stride * size <= 232_448
+        if dtype == torch.float32:
+            assert 4 * (geo.smem + 1024) <= 228 * 1024
+        small = lqr_kernel.launch_geometry(dtype, 20, backsolve, max_lanes=2,
+                                           blocks=blocks)
+        assert small.lanes == 2 and small.stride % 32 == 16
+        with pytest.raises(ValueError):
+            lqr_kernel.launch_geometry(dtype, 1, backsolve, blocks=blocks)
 
 
 @pytest.mark.parametrize("dtype", [F64, torch.float32])
@@ -166,31 +169,67 @@ def test_kernel_source_lane_results_do_not_depend_on_their_slot(lib):
         _same_bits(g, r)
 
 
-def _k5(lib, args):
-    """K5a, then K5b with its scratch, from the CPU build."""
+def _k5_inputs(seed, dtype=F64):
+    """K5's inputs in solve_lqr_batched's order (Q, R, S, qx, qu, A, B, c,
+    dx0): chip_smoke.py's well-conditioned random blocks."""
+    return [torch.as_tensor(a, dtype=dtype)
+            for a in random_lqr(np.random.default_rng(seed), N=N, Bn=B)]
+
+
+def _k5(lib, args, max_lanes=lqr_kernel.MAX_LANES):
+    """K5a, then K5b against its factor, from the CPU build."""
     Q, R, S, qx, qu, A, Bm, c, dx0 = args
     Nn, Bn = Q.shape[0], Q.shape[-1]
     fac = LQRFactor(*(Q.new_empty(s) for s in lqr_kernel._factor_shapes(Nn, Bn)))
+    lqr_kernel.launch(lib, "lqr_factor", [Q, R, S, A, Bm], fac, None, (),
+                      max_lanes)
     sol = lqr_kernel._solution_like(qx)
-    scratch = Q.new_empty(lib.lqr_backsolve_scratch_per_lane(Nn) * Bn)
-
-    def ptrs(ts):
-        return [t.data_ptr() for t in ts]
-
-    assert lib.lqr_factor_f64(Nn, Bn, *ptrs((Q, R, S, A, Bm)), *ptrs(fac),
-                              None) == 0
-    assert lib.lqr_backsolve_f64(Nn, Bn, *ptrs(fac),
-                                 *ptrs((A, Bm, c, qx, qu, dx0)), *ptrs(sol),
-                                 scratch.data_ptr(), None) == 0
+    lqr_kernel.launch(lib, "lqr_backsolve", [*fac, A, Bm, c, qx, qu, dx0], sol,
+                      None, (), max_lanes)
     return fac, sol
 
 
-def test_block_kernel_source_matches_plain_bit_for_bit(lib):
-    args = [torch.as_tensor(a) for a in random_lqr(np.random.default_rng(2),
-                                                   N=4, Bn=B)]
+def _k5_plain(args):
     Q, R, S, qx, qu, A, Bm, c, dx0 = args
-    fac_r = lqr_kernel.lqr_factor_reference(Q, R, S, A, Bm)
-    sol_r = lqr_kernel.lqr_backsolve_reference(fac_r, A, Bm, c, qx, qu, dx0)
-    fac, sol = _k5(lib, args)
-    _same_bits(fac, fac_r)
-    _same_bits(sol, sol_r)
+    fac = lqr_kernel.lqr_factor_reference(Q, R, S, A, Bm)
+    return fac, lqr_kernel.lqr_backsolve_reference(fac, A, Bm, c, qx, qu, dx0)
+
+
+@pytest.mark.parametrize("dtype", [F64, torch.float32])
+def test_block_kernel_source_matches_plain_bit_for_bit(lib, dtype):
+    args = _k5_inputs(2, dtype)
+    got = _k5(lib, args)
+    want = _k5_plain(args)
+    for g, r in zip(got, want):
+        for b in r:
+            assert torch.isfinite(b).all()
+        _same_bits(g, r)
+
+
+def test_block_kernel_source_nan_lane_matches_plain(lib):
+    """An inf in one lane's A: the same outputs NaN (and the other lanes
+    untouched) as in the plain version."""
+    args = _k5_inputs(3)
+    args[5][2, 4, 1, 5] = float("inf")
+    got = _k5(lib, args)
+    want = _k5_plain(args)
+    assert want[0].P[:, :, :, 5].isnan().any()
+    assert want[1].dxb[:, :, 5].isnan().any()
+    assert not want[0].P[..., [4, 6]].isnan().any()
+    for g, r in zip(got, want):
+        _same_bits(g, r)
+
+
+def test_block_kernel_source_lane_results_do_not_depend_on_their_slot(lib):
+    """A permutation of the lanes permutes K5's outputs bit for bit; 5
+    lanes launched alone, and every lane with 2 lanes a CTA, equal the full
+    launch."""
+    args = _k5_inputs(5)
+    full = _k5(lib, args)
+    for idx in (torch.randperm(B, generator=torch.Generator().manual_seed(4)),
+                torch.tensor([1, 7, 8, 11, 12])):
+        got = _k5(lib, [a[..., idx].contiguous() for a in args])
+        for g, r in zip(got, full):
+            _same_bits(g, [a[..., idx] for a in r])
+    for g, r in zip(_k5(lib, args, max_lanes=2), full):
+        _same_bits(g, r)
