@@ -18,7 +18,13 @@ CUDA kernel against its plain PyTorch version on the card:
   predictor_corrector=True) on the grid and the step, every iteration one
   Riccati factor K4a and two backsolves K4b of ops/csrc/lqr.cu, and the
   batched LQR solve solver/riccati.py::solve_lqr_batched through K5a and
-  K5b of the same source.
+  K5b of the same source;
+  slice 4, the closed loop: the JAX bench's fleet (engine/fleet.py::
+  run_fleet, B = 128 robots through the fence's 1.8 m gap for 8 s, the
+  batched kinodynamic search on every replan, nmpc_step_batched and the
+  plant every tick) and one robot's planner (engine/planner.py::
+  ResilientPlanner with engine/simulator.py::run_closed_loop), both
+  through K1, K2 and K3.
 
 Phases, one line each (any failure exits non-zero and nothing after it is
 printed):
@@ -107,8 +113,36 @@ printed):
      ones; the
      predictor-corrector step's ms per call and steps/s; nmpc_step at B = 1
      in DEFAULT_CONFIG with the predictor-corrector, p50 / p99 over 30 calls
+  12. slice 4, the fleet at f32 (engine/workloads.py: fleet_cfg,
+     fleet_scene, fleet_lanes): first the fleet's first batched search at
+     f64 on the card and, for lanes 0-31, on the CPU, with identical
+     status, n_edges, edge_inputs and iterations; then B = 128 for 8 s:
+     collided 0, every lane exactly one outcome, reached >= 0.95, states
+     and controls finite on the lanes not frozen, K2 and K3 launched once a
+     tick and K1 once a host-loop step; the K1, K2 and K3 calls of ticks
+     20 (a replan) and 25, their arguments recorded during the run (B = 128,
+     the 2048-point cloud, shrink_iters 8, max_obs_planes 12), each held
+     against its plain version at f64 on the same values with the bars of
+     phases 2, 5 and 6 (K1: identical it/done, 1e-9 (1 + |ref|); K2:
+     1e-10 (1 + |ref|); K3: 1e-9 on every row); printed: the outcomes, the
+     tick exit-code fractions, the searches, wall seconds and the realtime
+     factor B x 8 s / wall (the per-tick trace on); then a 2 s pass with a
+     sync around each search, step and plant call (ms per tick of each)
+  13. slice 4, one robot at f32: ResilientPlanner + QuadSim +
+     run_closed_loop in tests/test_closed_loop.py's configuration on its
+     hover-to-goal (4 s), wind-step (5 s) and fence (7 s, obstacle scene)
+     scenarios with that file's bars (final position within 0.4 m / 0.5 m,
+     failures <= solves // 4; fence: final x > 2.8 and inside the gap band
+     while at the fence line), K2 and K3 once a solve, K1 once a host-loop
+     step; in the fence scene the K1, K2 and K3 calls of every 4th solve
+     (B = 1, M = 2048) held against their plain versions at f64 with phase
+     12's bars, at least one of them with a non-empty cloud; then at
+     DEFAULT_CONFIG (its 400 x 400 x 60 map) 3 s hover to goal: the MPC
+     tick's p50 / p99 against the 50 ms tick, the search's ms and
+     occupied_cloud's ms over the 9.6M voxels
 
-The {"kernels"} line's bound_ms is the larger of the bytes the kernel must
+Every line is prefixed with the script's elapsed seconds.  The
+{"kernels"} line's bound_ms is the larger of the bytes the kernel must
 move (inputs read once, outputs written once) over the H100's 3.35 TB/s
 and its operations over 67 TFLOP/s (f32, no tensor cores), computed from
 this run's inputs (K2: the doublings its lanes take; K3: the sets of the
@@ -139,11 +173,15 @@ import torch
 from forces_resilient_planner_tpu_torch.config import DEFAULT_CONFIG
 from forces_resilient_planner_tpu_torch.engine import (
     batch,
+    fleet,
     pipeline,
     pipeline_batch,
+    planner,
     reference,
+    simulator,
     workloads,
 )
+from forces_resilient_planner_tpu_torch.mapping import occ_grid
 from forces_resilient_planner_tpu_torch.ops import (
     _build,
     corridor_kernel,
@@ -151,6 +189,7 @@ from forces_resilient_planner_tpu_torch.ops import (
     lqr_kernel,
     tube_kernel,
 )
+from forces_resilient_planner_tpu_torch.search import kinodynamic
 from forces_resilient_planner_tpu_torch.solver import ipm_lanes, nlp, riccati
 from forces_resilient_planner_tpu_torch.solver.problems import hover_warm_start
 from forces_resilient_planner_tpu_torch.tube import lyapunov
@@ -171,6 +210,10 @@ MAX_ITERS = 60.0
 KEYS = pipeline_batch.PIPELINE_ARG_KEYS
 STEP_B, STEP_K, STEP_M = 4096, 64, 256
 LQR_B, LQR_N = 4096, 20
+SEARCH_CPU_LANES = 32    # phase 12: lanes of the f64 search re-run on the CPU
+FLEET_SHORT_S = 2.0      # phase 12: the pass timed with a sync at each split
+FLEET_HOLD_TICKS = (20, 25)  # phase 12: ticks whose kernel inputs are held
+ROBOT_HOLD_SOLVES = range(0, 1000, 4)  # phase 13: the fence scene's solves
 
 
 def fail(msg: str):
@@ -178,8 +221,12 @@ def fail(msg: str):
     sys.exit(1)
 
 
+T0 = time.perf_counter()
+
+
 def say(msg: str):
-    print(msg, flush=True)
+    """One line, prefixed with the script's elapsed seconds."""
+    print(f"[{time.perf_counter() - T0:6.1f} s] {msg}", flush=True)
 
 
 def card_line() -> str:
@@ -489,10 +536,10 @@ def random_segments(B, N, M, seed):
     return p1, p2, obs, mask
 
 
-def corridor_rows(args, device):
+def corridor_rows(args, ccfg=DEFAULT_CONFIG.corridor,
+                  nh=DEFAULT_CONFIG.model.nh):
     """K3 and its plain version on the same inputs: per-(robot, stage) max
     |dA|, |db| over the rows."""
-    ccfg, nh = DEFAULT_CONFIG.corridor, DEFAULT_CONFIG.model.nh
     Ag, bg = corridor_kernel.decompose_stages_lanes(*args, ccfg, nh)
     Ar, br = corridor_kernel.decompose_stages_reference(*args, ccfg, nh)
     torch.cuda.synchronize()
@@ -556,9 +603,9 @@ def stage_segments(inputs, cfg):
             inputs["obstacles"], inputs["obstacle_mask"])
 
 
-def corridor_f64(args, device, label):
+def corridor_f64(args, label):
     """K3 vs plain at f64: A and b within 1e-9 on every row."""
-    dA, db = corridor_rows(args, device)
+    dA, db = corridor_rows(args)
     worst = max(dA.max().item(), db.max().item())
     if worst > 1e-9:
         fail(f"K3 f64 {label}: max row |d| {worst:.3e} > 1e-9 on "
@@ -802,11 +849,11 @@ def run_slice2(dev, card):
         p1, p2, obs, mask = random_segments(Bc, N, M, 31)
         args = [torch.as_tensor(a, dtype=torch.float64, device=dev)
                 for a in (p1, p2, obs)] + [torch.as_tensor(mask, device=dev)]
-        corridor_f64(args, dev, f"generic B={Bc} N={N} M={M}")
-    corridor_f64(stage_segments(in64, cfg), dev,
+        corridor_f64(args, f"generic B={Bc} N={N} M={M}")
+    corridor_f64(stage_segments(in64, cfg),
                  f"the main path's B={B} N={N} M={STEP_M}")
     args3 = stage_segments(inputs, cfg)
-    dA, db = corridor_rows(args3, dev)
+    dA, db = corridor_rows(args3)
     err3 = max(dA.max().item(), db.max().item())
     share = ((dA <= 1e-4) & (db <= 1e-4)).double().mean().item()
     say(f"phase 6 K3 vs plain f32 B={B} N={N} M={STEP_M}: rows within 1e-4 "
@@ -917,13 +964,23 @@ def record_k4(st, params, cfg):
     return calls[0], calls[1:]
 
 
+def map_tensors(fn, args):
+    """args with fn applied to every tensor, also inside (named) tuples."""
+    def conv(a):
+        if torch.is_tensor(a):
+            return fn(a)
+        if isinstance(a, tuple):
+            items = [conv(t) for t in a]
+            return type(a)(*items) if hasattr(a, "_fields") else tuple(items)
+        return a
+    return tuple(conv(a) for a in args)
+
+
 def as_f64(args):
-    """args with every tensor (and every field of a factor) in float64."""
-    return tuple(
-        riccati.LQRFactor(*(t.double() for t in a))
-        if isinstance(a, riccati.LQRFactor)
-        else a.double() if torch.is_tensor(a) else a
-        for a in args)
+    """args with every floating tensor (also the fields of a factor or of
+    the stage weights) in float64."""
+    return map_tensors(
+        lambda t: t.double() if t.is_floating_point() else t, args)
 
 
 def rel_dev(x, y):
@@ -1180,13 +1237,13 @@ def check_k5(dev, pc):
             launches, t)
 
 
-def grid_times(cfg, dev):
-    """solve_scenario_grid at f32 over 5 fresh bench seed sets after a
-    warm-up: (ms per call, mean iterations)."""
+def grid_times(cfg, dev, n_sets=5):
+    """solve_scenario_grid at f32 over `n_sets` fresh bench seed sets after
+    a warm-up: (ms per call, mean iterations)."""
     batch.solve_scenario_grid(cfg, *workloads.bench_seeds(1000), workloads.HALVES,
                               device=dev)
     lat, iters = [], []
-    for seed in range(1001, 1006):
+    for seed in range(1001, 1001 + n_sets):
         g, f = workloads.bench_seeds(seed)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1197,11 +1254,11 @@ def grid_times(cfg, dev):
     return 1e3 * np.asarray(lat), float(np.mean(iters))
 
 
-def step_times(cfg, dev, drift, label, card, phase):
-    """nmpc_step_batched at f32 over 5 pre-staged fresh input sets."""
+def step_times(cfg, dev, drift, label, card, phase, n_sets=5):
+    """nmpc_step_batched at f32 over `n_sets` pre-staged fresh input sets."""
     B = STEP_B
     sets = [step_inputs(seed, B, torch.float32, dev, drift=drift)
-            for seed in range(1001, 1006)]
+            for seed in range(1001, 1001 + n_sets)]
     torch.cuda.synchronize()
     lat, solved_t, iters = [], [], []
     for a in sets:
@@ -1317,6 +1374,360 @@ def run_slice3(dev, card, mono_grid):
          "bound_by": bounds[name][1], "library_ms": None}
         for name in LQR_KERNELS
     ]
+
+
+
+# ---------------------------------------------------------------------------
+# slice 4: the closed loop (the fleet, one robot's planner)
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def capture_solves(solves):
+    """Records, cloned, the arguments of the K1, K2 and K3 wrappers in the
+    NMPC solves numbered `solves` (0-based, one K2 and one K3 call each,
+    then that solve's K1 calls).  The wrappers run and count their
+    launches as before.  Yields {solve: {"K1": [args, ...], "K2": args,
+    "K3": args}}."""
+    got, seen = {}, {"K2": 0, "K3": 0}
+
+    def recorded(name, real):
+        def wrapper(*args):
+            if name == "K1":
+                s = seen["K3"] - 1
+                if seen["K2"] == seen["K3"] and s in got:
+                    got[s]["K1"].append(map_tensors(torch.clone, args))
+            else:
+                s = seen[name]
+                seen[name] += 1
+                if s in solves:
+                    got.setdefault(s, {"K1": []})[name] = map_tensors(
+                        torch.clone, args)
+            return real(*args)
+        return wrapper
+
+    with contextlib.ExitStack() as stack:
+        for name, module, attr in (
+                ("K1", ipm_kernel, "ipm_iteration_fused"),
+                ("K2", tube_kernel, "tube_stage_lanes"),
+                ("K3", corridor_kernel, "decompose_stages_lanes")):
+            stack.enter_context(mock.patch.object(
+                module, attr, recorded(name, getattr(module, attr))))
+        yield got
+
+
+def k1_f64(args):
+    """K1 against its plain version at f64 on one call's arguments (cast
+    from the run's f32): phase 2's bar, identical iteration counts, done
+    flags and NaN pattern, and |d| <= 1e-9 (1 + |ref|) on Z, lam, s and
+    mu_d.  Returns the max relative deviation."""
+    a = as_f64(args)
+    ref = ipm_kernel.ipm_iteration_reference(*a)
+    got = ipm_kernel.ipm_iteration_fused(*a)
+    torch.cuda.synchronize()
+    if not (torch.equal(ref[4][1], got[4][1])
+            and torch.equal(ref[4][2], got[4][2])):
+        fail("K1 f64 on the closed loop's inputs: iteration counts or done "
+             "flags differ from the plain version's")
+    worst = 0.0
+    for name, g, r in zip(("Z", "lam", "s", "mu_d"), got, ref):
+        if not torch.equal(g.isnan(), r.isnan()):
+            fail(f"K1 f64 on the closed loop's inputs: {name}'s NaNs differ")
+        rel = rel_dev(g.nan_to_num(), r.nan_to_num())
+        if not rel <= 1e-9:
+            fail(f"K1 f64 on the closed loop's inputs: {name} max rel "
+                 f"{rel:.3e} > 1e-9")
+        worst = max(worst, rel)
+    return worst
+
+
+def hold_solves(captured, phase, label):
+    """Each captured solve's K2, K3 and K1 calls held against their plain
+    versions at f64 on the same values (cast from the run's f32), with the
+    bars of phases 2, 5 and 6; any miss fails the phase.  Returns each
+    solve's largest cloud (masked points of a lane)."""
+    if not captured or any({"K1", "K2", "K3"} - set(c) or not c["K1"]
+                           for c in captured.values()):
+        fail(f"{label}: a captured solve lacks a K1, K2 or K3 call")
+    k1_rel, k1_calls, k2_rel, dA, db = 0.0, 0, 0.0, 0.0, 0.0
+    for c in captured.values():
+        x, u, mcfg, tcfg, K = as_f64(c["K2"])
+        ref = tube_kernel.tube_stage_reference(x, u, mcfg, tcfg, K)
+        got = tube_kernel.tube_stage_lanes(x, u, mcfg, tcfg, K)
+        torch.cuda.synchronize()
+        for name, g, r in zip(("Qd", "Mp", "Phi", "Q1"), got, ref):
+            rel = rel_dev(g, r) if torch.isfinite(g).all() else float("nan")
+            if not rel <= 1e-10:
+                fail(f"K2 f64 {label}: {name} max rel {rel:.3e} > 1e-10")
+            k2_rel = max(k2_rel, rel)
+        p1, p2, obs, mask, ccfg, nh = as_f64(c["K3"])
+        rows = corridor_rows((p1, p2, obs, mask), ccfg, nh)
+        dA, db = max(dA, rows[0].max().item()), max(db, rows[1].max().item())
+        if not max(dA, db) <= 1e-9:
+            fail(f"K3 f64 {label}: max row |d| {max(dA, db):.3e} > 1e-9")
+        for args in c["K1"]:
+            k1_rel = max(k1_rel, k1_f64(args))
+            k1_calls += 1
+    clouds = [int(c["K3"][3].sum(dim=-1).max()) for c in captured.values()]
+    p1, obs, ccfg = c["K3"][0], c["K3"][2], c["K3"][4]
+    say(f"phase {phase} {label}: K1, K2 and K3 vs plain at f64 on the inputs "
+        f"of {len(captured)} solves (B={p1.shape[0]} N={p1.shape[1]} "
+        f"M={obs.shape[1]}, up to {max(clouds)} cloud points a lane, "
+        f"corridor shrink_iters {ccfg.shrink_iters} max_obs_planes "
+        f"{ccfg.max_obs_planes}): K1 {k1_calls} calls, max rel {k1_rel:.2e} "
+        f"(bar 1e-9 (1+|ref|), identical it/done); K2 max rel {k2_rel:.2e} "
+        f"(bar 1e-10 (1+|ref|)); K3 max |dA| {dA:.2e}, max |db| {db:.2e} "
+        "(bar 1e-9 on every row)")
+    return clouds
+
+
+def fleet_setup(dtype, device):
+    """The JAX bench's fleet (engine/workloads.py): its config, scene and
+    B = 128 lanes, the scene's tensors in dtype on device."""
+    cfg = workloads.fleet_cfg()
+    grid, obs, mask = workloads.fleet_scene(cfg, dtype, device=device)
+    return (cfg, grid, obs, mask, *workloads.fleet_lanes(workloads.FLEET_B))
+
+
+def fly_fleet(setup, duration, trace=None):
+    cfg, grid, obs, mask, starts, goals, f_true = setup
+    return fleet.run_fleet(cfg, grid, obs, mask, starts, goals, f_true,
+                           duration, workloads.FLEET_REPLAN_EVERY,
+                           tick_trace=trace)
+
+
+def first_search_f64(dev):
+    """The fleet's first batched search at f64: all lanes on the card, and
+    lanes 0..SEARCH_CPU_LANES-1 alone on the CPU (lanes are independent:
+    tests/test_torch_search.py holds a batch to its lanes one by one).
+    Identical status, n_edges and edge_inputs, or the phase fails."""
+    out = []
+    for d, n in ((dev, workloads.FLEET_B),
+                 (torch.device("cpu"), SEARCH_CPU_LANES)):
+        cfg, grid, _, _, starts, goals, f_true = fleet_setup(torch.float64, d)
+
+        def t(a):
+            return torch.as_tensor(a[:n], dtype=torch.float64, device=d)
+
+        z3 = torch.zeros(n, 3, dtype=torch.float64, device=d)
+        t0 = time.perf_counter()
+        r = kinodynamic.search(grid, t(starts[:, 0:3]), t(starts[:, 3:6]), z3,
+                               t(goals), z3, t(f_true), False, cfg.search,
+                               cfg.tube, cfg.map)
+        out.append((r, time.perf_counter() - t0))
+    (card, s_card), (host, s_host) = out
+    n = SEARCH_CPU_LANES
+    same = {name: torch.equal(getattr(card, name)[:n].cpu(),
+                              getattr(host, name))
+            for name in ("status", "n_edges", "edge_inputs", "iterations")}
+    codes = {int(c): int((card.status == c).sum()) for c in card.status.unique()}
+    say(f"phase 12 first fleet search f64: card B={workloads.FLEET_B} "
+        f"{s_card:.2f} s (statuses {codes}), CPU lanes 0-{n - 1} "
+        f"{s_host:.2f} s; identical on those lanes: {same}")
+    if not all(same.values()):
+        fail(f"the card's f64 search differs from the CPU's: {same}")
+
+
+def timed_fleet_pass(setup, duration):
+    """One fleet run with a sync before and after each search, step and
+    plant call: ms per tick of each (host clock), the rest host work."""
+    acc = {"search": 0.0, "step": 0.0, "plant": 0.0}
+    calls = dict.fromkeys(acc, 0)
+
+    def timed(name, fn):
+        def run(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            acc[name] += time.perf_counter() - t0
+            calls[name] += 1
+            return out
+        return run
+
+    with contextlib.ExitStack() as stack:
+        for name, attr in (("search", "search_fleet"), ("step", "mpc_step"),
+                           ("plant", "plant_step")):
+            stack.enter_context(mock.patch.object(
+                fleet, attr, timed(name, getattr(fleet, attr))))
+        res = fly_fleet(setup, duration)
+    per_tick = {k: 1e3 * v / res.n_ticks for k, v in acc.items()}
+    rest = 1e3 * res.wall_s / res.n_ticks - sum(per_tick.values())
+    search_each = 1e3 * acc["search"] / max(calls["search"], 1)
+    return per_tick, rest, search_each, calls, res
+
+
+def check_fleet(dev, card):
+    """Phase 12: the fleet on the card at f32."""
+    f32 = torch.float32
+    B, dur = workloads.FLEET_B, workloads.FLEET_DURATION
+    first_search_f64(dev)
+    setup = fleet_setup(f32, dev)
+    cfg = setup[0]
+    reset_counts()
+    trace = []
+    with capture_solves(FLEET_HOLD_TICKS) as captured:
+        res = fly_fleet(setup, dur, trace)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    l1, l2, l3, l4a, l4b = counts
+    steps = ipm_lanes.STEPS
+    if "jax" in sys.modules:
+        fail("jax was imported")
+    ticks = res.n_ticks
+    reached = res.outcome == fleet.OUTCOME_REACHED
+    to_goal = res.time_to_goal[reached].mean() if reached.any() else np.nan
+    say(f"phase 12 fleet B={B} {dur} s ({ticks} ticks, replan every "
+        f"{workloads.FLEET_REPLAN_EVERY}) f32 [{card}]: outcomes "
+        f"{res.outcome_counts}, reached {res.reached_frac:.4f}, collided "
+        f"{res.collided_frac:.4f}, solved {res.solved_frac:.4f}, tick exit "
+        f"codes {res.tick_code_fracs}, searches {res.searches}, mean time to "
+        f"goal {to_goal:.3f} s, wall "
+        f"{res.wall_s:.2f} s "
+        f"(per-tick trace on), realtime factor {B * dur / res.wall_s:.1f}; "
+        f"launches K2 {l2} K3 {l3} K1 {l1} K4a {l4a} K4b {l4b}, host-loop "
+        f"steps {steps}")
+    if not (l2 == l3 == ticks and solver_launches_ok(counts, steps,
+                                                     cfg.solver)):
+        fail(f"fleet launches: K2 {l2}, K3 {l3} (want {ticks} each), K1 {l1} "
+             f"vs host-loop steps {steps}, K4a {l4a}, K4b {l4b}")
+    if res.collided_frac != 0.0:
+        fail(f"fleet collided {res.collided_frac}")
+    if sum(res.outcome_counts.values()) != B:
+        fail(f"fleet outcomes {res.outcome_counts} do not cover {B} lanes")
+    if res.reached_frac < 0.95:
+        fail(f"fleet reached {res.reached_frac} < 0.95")
+    # lanes freeze once reached or panicked (engine/fleet.py's ladder)
+    panic_after = cfg.fsm.max_solve_fails + 4
+    frozen = np.zeros(B, bool)
+    for tick in trace:
+        live = ~frozen
+        if not (np.isfinite(tick["states"][live]).all()
+                and np.isfinite(tick["u0"][live]).all()):
+            fail(f"non-finite fleet state or control at t = {tick['t']:.2f}")
+        arrived = res.time_to_goal <= tick["t"] + cfg.model.dt + 1e-9
+        frozen |= arrived | (tick["fail"] >= panic_after)
+
+    # tick 20 replans (replan every 10), tick 25 does not
+    hold_solves(captured, 12, f"the fleet's ticks {FLEET_HOLD_TICKS}")
+
+    per_tick, rest, search_each, calls, short = timed_fleet_pass(
+        setup, FLEET_SHORT_S)
+    say(f"phase 12 fleet ms per tick, a {FLEET_SHORT_S} s pass with a sync "
+        f"at each split [{card}]: search {per_tick['search']:.2f} "
+        f"({calls['search']} searches, {search_each:.1f} ms each), "
+        f"step {per_tick['step']:.2f}, plant {per_tick['plant']:.2f}, "
+        f"other host work {rest:.2f}; wall {short.wall_s:.2f} s for "
+        f"{short.n_ticks} ticks")
+
+
+def fence_points():
+    """tests/test_closed_loop.py's obstacle scene: a fence at x = 1.5 with
+    its gap at y in (-0.2, 1.6)."""
+    ys = np.arange(-3, 3, 0.1)
+    zs = np.arange(0, 2.6, 0.1)
+    yy, zz = np.meshgrid(ys, zs)
+    pts = np.stack([np.full(yy.size, 1.5), yy.ravel(), zz.ravel()], -1)
+    return pts[~((pts[:, 1] > -0.2) & (pts[:, 1] < 1.6))]
+
+
+def fly_robot(cfg, goal, duration, dev, schedule=None, occupied=None):
+    """One robot: ResilientPlanner + QuadSim + run_closed_loop from hover
+    at (0, 0, 1.2), f32 on the card, `occupied` points marked in its map
+    first."""
+    p = planner.ResilientPlanner(cfg, max_cloud=2048, dtype=torch.float32,
+                                 device=dev)
+    if occupied is not None:
+        p.set_occupied(occupied)
+    x0 = np.zeros(9)
+    x0[2] = 1.2
+    sim = simulator.QuadSim(cfg.model, x0.copy(), np.zeros(3))
+    p.on_odometry(x0)
+    trace = simulator.run_closed_loop(p, sim, goal, duration,
+                                      force_schedule=schedule)
+    return p, trace
+
+
+def check_robot(dev, card):
+    """Phase 13: one robot's closed loop on the card at f32."""
+    cfg = workloads.closed_loop_cfg()
+
+    def wind(t):
+        return np.array([1.5, 0.0, 0.0]) if t > 1.0 else np.zeros(3)
+
+    # tests/test_closed_loop.py's two scenarios and their own bars
+    for label, goal, dur, sched, tol in (
+            ("hover to goal", [2.0, 0.5], 4.0, None, 0.4),
+            ("wind step", [2.0, 0.0], 5.0, wind, 0.5)):
+        reset_counts()
+        t0 = time.perf_counter()
+        p, trace = fly_robot(cfg, goal, dur, dev, sched)
+        wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        l1, l2, l3, l4a, l4b = launch_counts()
+        d = p.diag
+        miss = float(np.linalg.norm(trace["pos"][-1]
+                                    - np.array([goal[0], goal[1], 1.2])))
+        solve = d.timers.report()["solve"]
+        say(f"phase 13 robot {label} {dur} s f32 [{card}]: final distance "
+            f"{miss:.3f} m (bar {tol}), solves {d.solves}, failures "
+            f"{d.solve_failures}, replans {d.replans}, transitions "
+            f"{len(d.fsm_transitions)}; solve p50 {solve['p50_ms']:.2f} ms, "
+            f"p99 {solve['p99_ms']:.2f}; launches K2 {l2} K3 {l3} K1 {l1}, "
+            f"host-loop steps {ipm_lanes.STEPS}; wall {wall:.2f} s")
+        if miss >= tol:
+            fail(f"robot {label}: final distance {miss:.3f} m >= {tol}")
+        if label == "hover to goal" and not (
+                d.solves > 10 and d.solve_failures <= d.solves // 4):
+            fail(f"robot {label}: {d.solve_failures} failures of "
+                 f"{d.solves} solves")
+        if not (l2 == l3 == d.solves and l1 == ipm_lanes.STEPS > 0
+                and l4a == l4b == 0):
+            fail(f"robot launches: K2 {l2}, K3 {l3} vs {d.solves} solves, "
+                 f"K1 {l1} vs {ipm_lanes.STEPS} steps")
+
+    # the obstacle scene, its own bars; every 4th solve's kernel inputs held
+    reset_counts()
+    t0 = time.perf_counter()
+    with capture_solves(ROBOT_HOLD_SOLVES) as captured:
+        p, trace = fly_robot(cfg, [3.5, 0.0], 7.0, dev,
+                             occupied=fence_points())
+    wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    l1, l2, l3, l4a, l4b = launch_counts()
+    steps, d, final = ipm_lanes.STEPS, p.diag, trace["pos"][-1]
+    ys = [q[1] for q in trace["pos"] if 1.35 < q[0] < 1.65]
+    say(f"phase 13 robot fence 7.0 s f32 [{card}]: final position "
+        f"{np.round(final, 3).tolist()} (bar x > 2.8), {len(ys)} samples "
+        f"at the fence line with y in [{min(ys, default=np.nan):.3f}, "
+        f"{max(ys, default=np.nan):.3f}] (bar (-0.2, 1.7)), solves "
+        f"{d.solves}, failures {d.solve_failures}, replans {d.replans}; "
+        f"launches K2 {l2} K3 {l3} K1 {l1}, host-loop steps {steps}; wall "
+        f"{wall:.2f} s")
+    if not final[0] > 2.8:
+        fail(f"robot fence: final x {final[0]:.3f} <= 2.8")
+    if not (ys and all(-0.2 < y < 1.7 for y in ys)):
+        fail("robot fence: not inside the gap band at the fence line")
+    if not (l2 == l3 == d.solves and l1 == steps > 0 and l4a == l4b == 0):
+        fail(f"robot fence launches: K2 {l2}, K3 {l3} vs {d.solves} solves, "
+             f"K1 {l1} vs {steps} steps")
+    clouds = hold_solves(captured, 13, "the robot's fence solves")
+    if max(clouds) == 0:
+        fail("robot fence: every solve's corridor cloud was empty")
+
+    # the deployment configuration: DEFAULT_CONFIG's 400 x 400 x 60 map
+    p, _ = fly_robot(DEFAULT_CONFIG, [2.0, 0.5], 3.0, dev)
+    solve = np.asarray(p.diag.timers._phases["solve"].samples[3:]) * 1e3
+    search = np.asarray(p.diag.timers._phases["search"].samples) * 1e3
+    n_vox = int(np.prod(DEFAULT_CONFIG.map.grid_shape))
+    cloud_ms = cuda_ms(lambda: occ_grid.occupied_cloud(
+        p.grid, DEFAULT_CONFIG.map, p.max_cloud), 10)
+    say(f"phase 13 robot DEFAULT_CONFIG hover to goal 3.0 s f32 [{card}]: MPC "
+        f"tick (solve) p50 {np.percentile(solve, 50):.2f} ms, p99 "
+        f"{np.percentile(solve, 99):.2f} ms over {len(solve)} ticks after 3 "
+        f"(the tick is 50 ms); search {search.mean():.2f} ms over "
+        f"{len(search)} searches (max {search.max():.2f}); occupied_cloud over "
+        f"{n_vox} voxels {cloud_ms:.3f} ms; final distance "
+        f"{np.linalg.norm(p.odom[0:3] - np.array([2.0, 0.5, 1.2])):.3f} m")
 
 
 def lane_position_check(state, params, cfg, seed):
@@ -1470,7 +1881,6 @@ def build_phase():
 
 
 def main() -> int:
-    t_start = time.perf_counter()
     # ---- phase 0: device ------------------------------------------------
     found = device_phase()
     if found is None:
@@ -1499,7 +1909,11 @@ def main() -> int:
     slice2 = run_slice2(dev, card)
     slice3 = run_slice3(dev, card, (lat_ms.mean(), iters))
 
-    say(f"chip_smoke total {time.perf_counter() - t_start:.1f} s")
+    # ---- phases 12-13: the closed loop -------------------------------------
+    check_fleet(dev, card)
+    check_robot(dev, card)
+
+    say(f"chip_smoke total {time.perf_counter() - T0:.1f} s")
     # max_abs_err: f32 kernel vs plain from the initial state, the check
     # held elementwise (the mid-solve one is printed in phase 2)
     print(json.dumps({"kernels": [{

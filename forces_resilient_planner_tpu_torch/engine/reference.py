@@ -4,6 +4,13 @@ Port of forces_resilient_planner_tpu/engine/reference.py (NMPCSolver::
 getCurTraj / calculate_yaw, nmpc_solver.cpp:109-142, 834-862), batched over
 a leading robot axis B.  The yaw low-pass filter is sequential by
 construction: a loop over the N stages on (B,) tensors.
+
+The sample index follows the JAX function as its callers run it, under
+jit on XLA:CPU: floor(fma(i, Ts, t_offset) * (1 / Ts)), one rounding of
+i Ts + t_offset and the division by the constant Ts as a product with its
+reciprocal; the interpolation fraction rounds i Ts + t_offset twice (XLA
+computes it in another fusion, uncontracted).  The two differ only when
+t_offset lies on the Ts grid, which is every tick of the fleet.
 """
 from __future__ import annotations
 
@@ -14,6 +21,26 @@ import torch
 from forces_resilient_planner_tpu_torch.utils.lanes import norm3
 
 _PI = 3.1415926  # the reference's PI constant, exactly (nmpc_solver.cpp:3)
+
+
+def _fma_small(i: torch.Tensor, c: float, t: torch.Tensor) -> torch.Tensor:
+    """i * c + t as a near-FMA (double-double), for small integer-valued i
+    (i < 2^12 at f32, i < 2^26 at f64; the step's stage index is below N):
+    c split into halves of at most 12 (f32) or 26 (f64) bits makes i * hi
+    and i * lo exact, the error of i * hi + t is carried by a TwoSum, and
+    s + (err + i * lo) then rounds twice, so the result is not a correctly
+    rounded FMA in every case.  It mirrors the contraction that XLA:CPU
+    applies to the jitted reference (ROADMAP Queue 3)."""
+    bits = 12 if t.dtype == torch.float32 else 27
+    ct = torch.tensor(c, dtype=t.dtype, device=t.device)
+    big = ct * (2.0 ** bits + 1.0)
+    hi = big - (big - ct)
+    lo = ct - hi
+    a, b = i * hi, i * lo
+    s = a + t
+    bb = s - a
+    err = (a - (s - bb)) + (t - bb)
+    return s + (err + b)
 
 
 class ReferenceResult(NamedTuple):
@@ -37,8 +64,9 @@ def sample_references(
     size = kino_size.to(torch.int64)[:, None]                    # (B, 1)
     i = torch.arange(N, dtype=dtype, device=device)
     index_time = i[None] * Ts + t_offset[:, None]                # (B, N)
-    kino_idx = torch.floor(index_time / Ts).to(torch.int64)
-    frac = torch.remainder(index_time, Ts) / Ts
+    fused = _fma_small(i[None], Ts, t_offset[:, None])
+    kino_idx = torch.floor(fused * (1.0 / Ts)).to(torch.int64)
+    frac = torch.remainder(index_time, Ts) * (1.0 / Ts)
     last = torch.clamp(size - 1, min=0)                          # (B, 1)
 
     rows = torch.arange(B, device=device)[:, None]

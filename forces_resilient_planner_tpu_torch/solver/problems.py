@@ -20,18 +20,20 @@ def hover_warm_start(
     state: torch.Tensor, cfg: ModelConfig, thrust_seed: float | None = None,
     dtype=None,
 ) -> torch.Tensor:
-    """Hover-seeded Z0 (N, 17): zero rates, hover thrust, state replicated.
+    """Hover-seeded Z0 (..., N, 17) of states (..., 9): zero rates, hover
+    thrust, the state replicated (the fleet seeds a batch, the JAX fleet a
+    vmap of this).
 
     Mirrors initMPCOutput's seed (nmpc_solver.cpp:265-286).
     """
     dtype = dtype or state.dtype
     t = cfg.hover_thrust if thrust_seed is None else thrust_seed
-    row = torch.cat([
-        torch.tensor([0.0, 0.0, 0.0, t, 0.0, 0.0, 0.0, t],
-                     dtype=dtype, device=state.device),
-        state.to(dtype),
-    ])
-    return row[None, :].repeat(cfg.N, 1)
+    seed = torch.tensor([0.0, 0.0, 0.0, t, 0.0, 0.0, 0.0, t],
+                        dtype=dtype, device=state.device)
+    row = torch.cat([seed.expand(state.shape[:-1] + (8,)), state.to(dtype)],
+                    dim=-1)
+    return row[..., None, :].expand(
+        state.shape[:-1] + (cfg.N, row.shape[-1])).contiguous()
 
 
 def lqr_warm_start_batch(

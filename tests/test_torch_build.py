@@ -36,6 +36,21 @@ def _run(code_or_args, timeout=300):
     "forces_resilient_planner_tpu_torch.solver.problems",
     "forces_resilient_planner_tpu_torch.tools.k1_phase_probe",
     "forces_resilient_planner_tpu_torch.tools.k4_phase_probe",
+    "forces_resilient_planner_tpu_torch.engine.commander",
+    "forces_resilient_planner_tpu_torch.engine.simulator",
+    "forces_resilient_planner_tpu_torch.engine.depth_camera",
+    "forces_resilient_planner_tpu_torch.engine.scenarios",
+    "forces_resilient_planner_tpu_torch.engine.fleet",
+    "forces_resilient_planner_tpu_torch.engine.planner",
+    "forces_resilient_planner_tpu_torch.utils.timing",
+    "forces_resilient_planner_tpu_torch.utils.scene",
+    "forces_resilient_planner_tpu_torch.corridor.geometry",
+    "forces_resilient_planner_tpu_torch.corridor.msgs",
+    "forces_resilient_planner_tpu_torch.estimation",
+    "forces_resilient_planner_tpu_torch.estimation.force_estimator",
+    "forces_resilient_planner_tpu_torch.mapping.occ_grid",
+    "forces_resilient_planner_tpu_torch.search.kinodynamic",
+    "forces_resilient_planner_tpu_torch.tools.closed_loop_probe",
 ])
 def test_port_imports_no_jax(module):
     """Neither jax nor any module of the JAX package is loaded."""

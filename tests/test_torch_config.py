@@ -1,10 +1,16 @@
 """The port's own copies of the configuration tree and of the benchmark
-workloads equal their originals in the JAX package, bench.py and
-__graft_entry__.py (no JAX compile: the originals import numpy only)."""
+workloads equal their originals in the JAX package, bench.py,
+__graft_entry__.py and tools/fleet_probe.py (no JAX compile but the fleet
+scene's eager occupancy calls)."""
 import dataclasses
+import importlib.util
+import inspect
+import pathlib
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 import __graft_entry__
 import bench
@@ -65,3 +71,50 @@ def test_bench_config_equals_bench_py():
 
 def test_small_cfg_equals_graft_entry():
     assert _plain(workloads.small_cfg()) == _plain(__graft_entry__._small_cfg())
+
+
+def _fleet_probe():
+    path = pathlib.Path(bench.__file__).parent / "tools" / "fleet_probe.py"
+    spec = importlib.util.spec_from_file_location("fleet_probe", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_fleet_cfg_equals_fleet_probe():
+    assert _plain(workloads.fleet_cfg()) == _plain(_fleet_probe().fleet_cfg())
+
+
+def test_fleet_scene_equals_fleet_probe():
+    fp = _fleet_probe()
+    grid_j, obs_j, mask_j = fp.fleet_scene(fp.fleet_cfg(), jnp.float64)
+    grid_t, obs_t, mask_t = workloads.fleet_scene(
+        workloads.fleet_cfg(), torch.float64, device="cpu")
+    for got, want in zip(grid_t, grid_j):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(obs_t.numpy(), np.asarray(obs_j))
+    np.testing.assert_array_equal(mask_t.numpy(), np.asarray(mask_j))
+    assert obs_t.shape == (2048, 3) and int(mask_t.sum()) > 1000
+
+
+def test_fleet_lanes_and_run_equal_bench_py():
+    """The lanes of bench.py's _fleet_bench: its own generator lines run
+    at B = 128, and its B, duration and replan cadence."""
+    src = inspect.getsource(bench._fleet_bench)
+    lines = src[src.index("    rng = np.random.default_rng(5)"):
+                src.index("    res = fleet.run_fleet(")]
+    scope = {"np": np, "B": workloads.FLEET_B}
+    exec(inspect.cleandoc("\n" + lines), scope)
+    for got, name in zip(workloads.fleet_lanes(), ("starts", "goals",
+                                                   "f_true")):
+        np.testing.assert_array_equal(got, scope[name])
+    sig = inspect.signature(bench._fleet_bench).parameters
+    assert sig["B"].default == workloads.FLEET_B
+    assert sig["duration"].default == workloads.FLEET_DURATION
+    assert "replan_every=10," in src and workloads.FLEET_REPLAN_EVERY == 10
+
+
+def test_closed_loop_cfg_equals_the_closed_loop_tests():
+    from test_closed_loop import CFG
+
+    assert _plain(workloads.closed_loop_cfg()) == _plain(CFG)

@@ -5,10 +5,11 @@ single sample), time offsets off the Ts grid (and 0), yaws near the
 +-pi wrap.  Tolerance 1e-12 absolute (the same formulas in the same order).
 
 At an offset on the Ts grid, floor((i Ts + t_offset) / Ts) is decided by
-the last bit: the port rounds i Ts + t_offset twice, as the JAX function
-does op by op, while XLA:CPU contracts it into one fused multiply-add under
-jit, so jitted JAX can pick the next path sample there (ROADMAP.md, Queue
-3).  The grid-offset test below pins the port to the op-by-op value."""
+the last bit: XLA:CPU contracts i Ts + t_offset into one fused
+multiply-add under jit and multiplies by 1 / Ts, so jitted JAX can pick
+the next path sample there (ROADMAP.md, Queue 3).  The port computes the
+index as jitted JAX does (the fleet's offsets sit on the grid every tick);
+the grid-offset test below holds it to jitted JAX at such offsets."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -84,16 +85,28 @@ def test_wrap_yaw_outputs_matches_jax():
 
 
 def test_grid_offsets_round_op_by_op():
-    """t_offset = Ts: index i samples floor(fl(fl(i Ts) + Ts) / Ts), with
-    each operation rounded on its own (numpy float64 here)."""
+    """t_offset = k Ts on the grid (k = 0..25, the fleet's offsets): the
+    samples jitted JAX picks, where the fused multiply-add of the index and
+    the op-by-op fraction decide the last bit (within 1e-12 of it)."""
     paths, sizes, _, last_yaw, pred = _inputs()
-    toff = np.full(len(sizes), TS)
+    paths, sizes = paths[:1], sizes[:1]       # the full-length path
+    toff = np.arange(26) * TS
+    n = len(toff)
+    ref = jax.jit(jax.vmap(
+        lambda p, s, o, y, q: jr.sample_references(p, s, o, y, q, N=N, Ts=TS),
+        in_axes=(None, None, 0, None, None),
+    ))(paths[0], sizes[0], toff, last_yaw[0], pred[0])
     t = torch.as_tensor
-    got = tr.sample_references(t(paths), t(sizes), t(toff), t(last_yaw),
-                               t(pred), N=N, Ts=TS)
-    it = np.arange(N) * TS + TS
-    idx = np.floor(it / TS).astype(int)
+    got = tr.sample_references(
+        t(np.repeat(paths, n, 0)), t(np.repeat(sizes, n)), t(toff),
+        t(np.repeat(last_yaw[:1], n)), t(np.repeat(pred[:1], n, 0)),
+        N=N, Ts=TS)
+    np.testing.assert_allclose(got.ref_pos.numpy(), np.asarray(ref.ref_pos),
+                               rtol=0, atol=TOL)
+    # the op-by-op index would pick another sample at some of them
+    it = np.arange(N)[None] * TS + toff[:, None]
+    plain = np.floor(it / TS).astype(int)
     frac = np.mod(it, TS) / TS
-    b = 0                                   # full-length path
-    want = paths[b, idx] + frac[:, None] * (paths[b, idx + 1] - paths[b, idx])
-    np.testing.assert_allclose(got.ref_pos[b].numpy(), want, rtol=0, atol=TOL)
+    p = paths[0]
+    want = p[plain] + frac[..., None] * (p[plain + 1] - p[plain])
+    assert np.abs(got.ref_pos.numpy() - want).max() > 1e-3
