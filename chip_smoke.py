@@ -24,7 +24,14 @@ CUDA kernel against its plain PyTorch version on the card:
   batched kinodynamic search on every replan, nmpc_step_batched and the
   plant every tick) and one robot's planner (engine/planner.py::
   ResilientPlanner with engine/simulator.py::run_closed_loop), both
-  through K1, K2 and K3.
+  through K1, K2 and K3;
+  slice 5, the surfaces and scale-out: the FORCES API (solver/
+  forces_api.py, B = 1 of the lane-major solver through K1, and K4 under a
+  predictor-corrector configuration), the sharded solve of parallel/
+  mesh.py in a world of one NCCL rank, BASELINE config 5's 102,400-
+  scenario sweep through the ported example, interrupted after 8
+  checkpointed chunks and resumed in a fresh process, and entry.py's
+  entry() and dryrun_multichip(1) (K1, K2, K3).
 
 Phases, one line each (any failure exits non-zero and nothing after it is
 printed):
@@ -140,6 +147,35 @@ printed):
      DEFAULT_CONFIG (its 400 x 400 x 60 map) 3 s hover to goal: the MPC
      tick's p50 / p99 against the 50 ms tick, the search's ms and
      occupied_cloud's ms over the 9.6M voxels
+  14. slice 5 at DEFAULT_CONFIG: (a) the FORCES API on the migration
+     example's problem (tube-tightened box, E from propagate_tubes) and a
+     hover-to-goal problem with f_ext = (0.4, -0.2, 0), each in the normal
+     and the final profile: at f64 through K1's f64 build exitflag and
+     info.it identical to the port's f64 CPU solve of the same packed
+     params and Z within 1e-8 (1 + |ref|); at f32 exitflag 1 and u within
+     1e-3 of the f64 CPU solve; K1 launched once per host-loop step (> 1)
+     and nothing else; the final profile's terminal speed below half the
+     normal one's; the f64 card solution of the hover problem within 1e-3
+     in u of oracle/cpu_oracle.py's SLSQP solve (CPU, f64); a predictor-
+     corrector solve with exitflag 1, K4a = host-loop steps, K4b = twice
+     that, no K1; printed: ms per solve, p50 / p99 of 20, at f32 and f64.
+     (b) the bench grid of seed 3 (4096 scenarios) through
+     parallel/mesh.py::make_sharded_solver in a world-size-1 NCCL group
+     (file rendezvous in a temporary directory, destroyed after): Z, exit
+     codes, iterations and every result field bit-equal to
+     batch.solve_scenarios on the same ScenarioSet; stats n = 4096 and
+     n_solved = (ec == 1).sum(); K1 once per host-loop step; printed: ms
+     per call of both, in turns. (c) BASELINE config 5: the ported
+     example's streamed path, 25 chunks x 4096 = 102,400 scenarios, run
+     as a process with --chunks 8 and then a fresh one with --chunks 25 on
+     the same checkpoint directory: resumed_chunks = 8, n_scenarios =
+     102,400, resilience >= 0.999, every chunk's exit codes and iterations
+     bit-equal to one uninterrupted run of the 25 chunks (in this process,
+     K1 once per host-loop step); printed: solves/s and steady state,
+     mean / p99 / max iterations, exit-code fractions. (d) entry()'s step
+     on the card: finite, its exit code equal to the same call on the CPU,
+     K2 and K3 launched once and K1 once per host-loop step; then
+     dryrun_multichip(1) (one spawned NCCL rank) passing its shape check
 
 Every line is prefixed with the script's elapsed seconds.  The
 {"kernels"} line's bound_ms is the larger of the bytes the kernel must
@@ -161,15 +197,19 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import io
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from unittest import mock
 
 import numpy as np
 import torch
 
+from forces_resilient_planner_tpu_torch import entry
 from forces_resilient_planner_tpu_torch.config import DEFAULT_CONFIG
 from forces_resilient_planner_tpu_torch.engine import (
     batch,
@@ -181,6 +221,10 @@ from forces_resilient_planner_tpu_torch.engine import (
     simulator,
     workloads,
 )
+from forces_resilient_planner_tpu_torch.examples import (
+    config5_monte_carlo as config5,
+    forces_api_migration as migration,
+)
 from forces_resilient_planner_tpu_torch.mapping import occ_grid
 from forces_resilient_planner_tpu_torch.ops import (
     _build,
@@ -189,10 +233,21 @@ from forces_resilient_planner_tpu_torch.ops import (
     lqr_kernel,
     tube_kernel,
 )
+from forces_resilient_planner_tpu_torch.oracle import cpu_oracle
+from forces_resilient_planner_tpu_torch.parallel import mesh
 from forces_resilient_planner_tpu_torch.search import kinodynamic
-from forces_resilient_planner_tpu_torch.solver import ipm_lanes, nlp, riccati
-from forces_resilient_planner_tpu_torch.solver.problems import hover_warm_start
+from forces_resilient_planner_tpu_torch.solver import (
+    forces_api,
+    ipm_lanes,
+    nlp,
+    riccati,
+)
+from forces_resilient_planner_tpu_torch.solver.problems import (
+    box_corridor,
+    hover_warm_start,
+)
 from forces_resilient_planner_tpu_torch.tube import lyapunov
+from forces_resilient_planner_tpu_torch.utils import checkpoint
 
 CSRC = "forces_resilient_planner_tpu_torch/ops/csrc/"
 KERNEL_SOURCE = CSRC + "ipm_iteration.cu"
@@ -214,6 +269,11 @@ SEARCH_CPU_LANES = 32    # phase 12: lanes of the f64 search re-run on the CPU
 FLEET_SHORT_S = 2.0      # phase 12: the pass timed with a sync at each split
 FLEET_HOLD_TICKS = (20, 25)  # phase 12: ticks whose kernel inputs are held
 ROBOT_HOLD_SOLVES = range(0, 1000, 4)  # phase 13: the fence scene's solves
+# phase 14(c): BASELINE config 5, 25 chunks of the 4096-scenario grid,
+# interrupted after 8; MC_ARGS: extra arguments of the example's runs
+MC_CHUNKS, MC_RESUME_AFTER = 25, 8
+MC_BATCH = workloads.N_GOALS * workloads.N_FORCES
+MC_ARGS: list = []
 
 
 def fail(msg: str):
@@ -268,6 +328,12 @@ def iter_args(state, params, cfg):
     return (*state, params.weights, params.ref_pos, params.ref_yaw,
             params.corridor_A, params.corridor_b, params.f_ext, params.xinit,
             mi, cfg.model, cfg.solver)
+
+
+def bit_equal(a, b) -> bool:
+    """Equal bit for bit, NaN where the other is NaN."""
+    return (a.shape == b.shape and torch.equal(a.isnan(), b.isnan())
+            and torch.equal(a.nan_to_num(), b.nan_to_num()))
 
 
 def max_rel(x, y, mask):
@@ -1059,9 +1125,7 @@ def lane_position(label, factor, backsolve, fa, sa, seed):
         torch.cuda.synchronize()
         for name, g, r in zip(got_f._fields + got_s._fields,
                               (*got_f, *got_s), (*full_f, *full_s)):
-            r = r[..., idx]
-            if not (torch.equal(g.isnan(), r.isnan())
-                    and torch.equal(g.nan_to_num(), r.nan_to_num())):
+            if not bit_equal(g, r[..., idx]):
                 fail(f"{label} on {what}: {name} differs from the full launch")
     return (f"bit-identical on a permutation of the {B} lanes and on "
             f"{part.numel()} lanes launched alone")
@@ -1730,6 +1794,275 @@ def check_robot(dev, card):
         f"{np.linalg.norm(p.odom[0:3] - np.array([2.0, 0.5, 1.2])):.3f} m")
 
 
+# ---------------------------------------------------------------------------
+# phase 14: slice 5, the surfaces and scale-out
+# ---------------------------------------------------------------------------
+
+def hover_force_params():
+    """The FORCES API's hover-to-goal problem: (0, 0, 1.2) to (1.5, 0.8,
+    1.2) under f_ext = (0.4, -0.2, 0), a 5 x 5 x 2 m box, stage weights."""
+    x0, goal = migration.X0, np.array([1.5, 0.8, 1.2])
+    params = forces_api.ForcesParams()
+    params.xinit[:] = x0
+    w = DEFAULT_CONFIG.weights
+    forces_api.set_stage_weights(params, w.w_stage_wp, w.w_stage_input,
+                                 w.w_input_rate, w.w_terminal_wp,
+                                 w.w_terminal_input)
+    A, b = box_corridor(0.5 * (x0[:3] + goal), np.array([5.0, 5.0, 2.0]),
+                        forces_api.N, device="cpu")
+    forces_api.pack_stage_params(
+        params, np.tile(goal[None], (forces_api.N, 1)),
+        np.full(forces_api.N, np.arctan2(goal[1], goal[0])),
+        np.array([0.4, -0.2, 0.0]), A.numpy(), b.numpy())
+    forces_api.pack_warm_start(params, hover_warm_start(
+        torch.as_tensor(x0), DEFAULT_CONFIG.model).numpy())
+    return params
+
+
+def stack_out(out):
+    return np.stack([out[f"x{i + 1:02d}"] for i in range(forces_api.N)])
+
+
+def forces_solve(params, profile, dtype, device, cfg=DEFAULT_CONFIG):
+    """One ForcesSolver solve on a copy of params: (Z (N, 17), exitflag,
+    info, K launches (K1, K2, K3, K4a, K4b), host-loop steps)."""
+    params = dataclasses.replace(
+        params, xinit=params.xinit.copy(), x0=params.x0.copy(),
+        all_parameters=params.all_parameters.copy())
+    solver = forces_api.ForcesSolver(profile, cfg, dtype, device=device)
+    reset_counts()
+    out, flag, info = solver.solve(params)
+    torch.cuda.synchronize()
+    return stack_out(out), flag, info, launch_counts(), ipm_lanes.STEPS
+
+
+def check_forces_api(dev, card):
+    """Phase 14(a): the FORCES API on the card, DEFAULT_CONFIG."""
+    cpu = torch.device("cpu")
+    problems = {"migration": migration.migration_params(device=dev),
+                "hover f_ext": hover_force_params()}
+    for name, params in problems.items():
+        speed = {}
+        for profile in ("normal", "final"):
+            Zc, fc, ic, _, _ = forces_solve(params, profile, torch.float64,
+                                            cpu)
+            Zg, fg, ig, cnt, steps = forces_solve(params, profile,
+                                                  torch.float64, dev)
+            rel = float(np.max(np.abs(Zg - Zc) / (1.0 + np.abs(Zc))))
+            Z32, f32, i32, cnt32, steps32 = forces_solve(
+                params, profile, torch.float32, dev)
+            du32 = float(np.abs(Z32[:, :4] - Zc[:, :4]).max())
+            speed[profile] = float(np.linalg.norm(Zg[-1, 11:14]))
+            say(f"phase 14 FORCES API {name} {profile}: f64 card exitflag "
+                f"{fg} it {ig.it} vs CPU {fc} / {ic.it}, Z max rel "
+                f"{rel:.2e} (bar 1e-8 (1+|ref|)), K1 {cnt[0]} = host-loop "
+                f"steps {steps}; f32 card exitflag {f32} it {i32.it}, max "
+                f"|du| vs the f64 CPU solve {du32:.2e} (bar 1e-3), K1 "
+                f"{cnt32[0]} = steps {steps32}; res_eq {ig.res_eq:.2e} "
+                f"res_ineq {ig.res_ineq:.2e} rdgap {ig.rdgap:.2e} pobj "
+                f"{ig.pobj:.6f}")
+            if not (fg == fc and ig.it == ic.it and rel <= 1e-8):
+                fail(f"FORCES API {name} {profile}: f64 card vs CPU")
+            if not (f32 == 1 and du32 <= 1e-3):
+                fail(f"FORCES API {name} {profile}: f32 exitflag {f32}, "
+                     f"|du| {du32:.2e}")
+            for c, n in ((cnt, steps), (cnt32, steps32)):
+                if not (c[0] == n > 1 and c[1:] == (0, 0, 0, 0)):
+                    fail(f"FORCES API {name} {profile}: launches {c} vs "
+                         f"{n} host-loop steps")
+        say(f"phase 14 FORCES API {name}: terminal speed final "
+            f"{speed['final']:.4f} vs normal {speed['normal']:.4f} m/s (bar "
+            f"final < half)")
+        if not speed["final"] < 0.5 * speed["normal"]:
+            fail(f"FORCES API {name}: the final profile does not brake")
+
+    # the independent oracle (CPU, f64) on the hover problem
+    params = problems["hover f_ext"]
+    Zg = forces_solve(params, "normal", torch.float64, dev)[0]
+    _, p = forces_api.unpack_params(params, DEFAULT_CONFIG, final=False,
+                                    device="cpu")
+    t0 = time.perf_counter()
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)    # 84-wide operations: threads only add cost
+    try:
+        Zo, r = cpu_oracle.solve_oracle(p, DEFAULT_CONFIG.model,
+                                        DEFAULT_CONFIG.solver)
+    finally:
+        torch.set_num_threads(threads)
+    du = float(np.abs(Zg[:, :4] - Zo[:, :4]).max())
+    say(f"phase 14 FORCES API hover f_ext normal: f64 card vs the SLSQP "
+        f"oracle max |du| {du:.2e} (bar 1e-3; oracle {r.nit} iterations, "
+        f"status {r.status}, {time.perf_counter() - t0:.1f} s on the CPU)")
+    if not du <= 1e-3:
+        fail(f"FORCES API vs the oracle: |du| {du:.2e}")
+
+    # a predictor-corrector configuration: K4a once and K4b twice a step
+    pc = with_pc(DEFAULT_CONFIG)
+    _, fpc, ipc, cnt, steps = forces_solve(problems["migration"], "normal",
+                                           torch.float64, dev, pc)
+    say(f"phase 14 FORCES API migration, predictor-corrector f64: exitflag "
+        f"{fpc} it {ipc.it}; K4a {cnt[3]} K4b {cnt[4]} K1 {cnt[0]}, "
+        f"host-loop steps {steps}")
+    if not (fpc == 1 and solver_launches_ok(cnt, steps, pc.solver)):
+        fail(f"FORCES API predictor-corrector: exitflag {fpc}, launches "
+             f"{cnt} vs {steps} steps")
+
+    # ms per solve, p50 of 20, the migration problem
+    times = {}
+    for dtype in (torch.float32, torch.float64):
+        solver = forces_api.ForcesSolver("normal", DEFAULT_CONFIG, dtype,
+                                         device=dev)
+        ms = []
+        for _ in range(21):
+            t0 = time.perf_counter()
+            solver.solve(problems["migration"])
+            ms.append(1e3 * (time.perf_counter() - t0))
+        times[dtype] = np.percentile(ms[1:], 50), np.percentile(ms[1:], 99)
+    say(f"phase 14 FORCES API migration solve [{card}]: f32 p50 "
+        f"{times[torch.float32][0]:.3f} ms (p99 {times[torch.float32][1]:.3f})"
+        f", f64 p50 {times[torch.float64][0]:.3f} ms (p99 "
+        f"{times[torch.float64][1]:.3f}) over 20 solves")
+
+
+def check_sharded(dev, card):
+    """Phase 14(b): the sharded solve in a world-size-1 NCCL group."""
+    cfg = workloads.bench_config()
+    g, f = workloads.bench_seeds(3)
+    with tempfile.TemporaryDirectory() as d:
+        mesh.init_group("cuda", f"file://{d}/rendezvous", 1, 0)
+        try:
+            m = mesh.make_mesh(device_type="cuda")
+            scen = batch.make_scenarios(cfg, g, f, workloads.HALVES,
+                                        dtype=torch.float32, device=dev)
+            local = mesh.shard_scenarios(scen, m)
+            run = mesh.make_sharded_solver(cfg, m)
+            reset_counts()
+            res, stats = run(local)
+            torch.cuda.synchronize()
+            l1, steps = launch_counts()[0], ipm_lanes.STEPS
+            ref = batch.solve_scenarios(scen, cfg)
+            same = all(bit_equal(a, b) for a, b in zip(res, ref))
+            n_solved = int((ref.exit_code == 1).sum())
+            ms = {"sharded": [], "solve_scenarios": []}
+            for _ in range(3):
+                for label, fn in (("sharded", lambda: run(local)),
+                                  ("solve_scenarios",
+                                   lambda: batch.solve_scenarios(scen, cfg))):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    fn()
+                    torch.cuda.synchronize()
+                    ms[label].append(1e3 * (time.perf_counter() - t0))
+        finally:
+            torch.distributed.destroy_process_group()
+    say(f"phase 14 sharded solve, NCCL world of 1, mesh "
+        f"{tuple(m.mesh.shape)}, B={scen.batch} f32: bit-equal to "
+        f"solve_scenarios {same}; stats n {stats.n.item():.0f} n_solved "
+        f"{stats.n_solved.item():.0f} (solve_scenarios {n_solved}), mean "
+        f"iters {stats.mean_iters.item():.4f}, max kkt solved "
+        f"{stats.max_kkt_solved.item():.3e}; K1 {l1} = host-loop steps "
+        f"{steps}; [{card}] ms per call sharded {np.median(ms['sharded']):.2f}"
+        f" vs solve_scenarios {np.median(ms['solve_scenarios']):.2f} (median "
+        "of 3, in turns)")
+    if not same:
+        fail("sharded solve differs from solve_scenarios")
+    if not (stats.n.item() == scen.batch == len(g) * len(f)
+            and stats.n_solved.item() == n_solved):
+        fail(f"sharded stats n {stats.n.item()}, n_solved "
+             f"{stats.n_solved.item()} vs {n_solved}")
+    if not l1 == steps > 0:
+        fail(f"sharded solve: K1 {l1} vs {steps} host-loop steps")
+
+
+def check_monte_carlo(dev, card):
+    """Phase 14(c): BASELINE config 5, 25 x 4096 scenarios, interrupted
+    after 8 checkpointed chunks and resumed in a fresh process, against one
+    uninterrupted run of the same chunks."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as d:
+        cmd = [sys.executable, "-m",
+               "forces_resilient_planner_tpu_torch.examples."
+               "config5_monte_carlo", "--ckpt-dir", f"{d}/resumed", *MC_ARGS]
+        t0 = time.perf_counter()
+        for extra in (["--chunks", str(MC_RESUME_AFTER), "--no-summary"],
+                      ["--chunks", str(MC_CHUNKS), "--out",
+                       f"{d}/summary.json"]):
+            proc = subprocess.run(cmd + extra, cwd=root, capture_output=True,
+                                  text=True, timeout=600)
+            if proc.returncode != 0:
+                fail(f"config 5 {' '.join(extra)}: exit {proc.returncode}: "
+                     f"{proc.stderr[-2000:]}")
+        wall = time.perf_counter() - t0
+        with open(f"{d}/summary.json") as fh:
+            s = json.load(fh)
+        reset_counts()
+        with contextlib.redirect_stdout(io.StringIO()):
+            whole = config5.main(["--ckpt-dir", f"{d}/whole", "--chunks",
+                                  str(MC_CHUNKS), *MC_ARGS])
+        torch.cuda.synchronize()
+        l1, steps = launch_counts()[0], ipm_lanes.STEPS
+        ck_r = checkpoint.SweepCheckpointer(f"{d}/resumed")
+        ck_w = checkpoint.SweepCheckpointer(f"{d}/whole")
+        differ = [c for c in range(MC_CHUNKS) if not all(
+            bit_equal(a, b) for a, b in zip(ck_r.load_chunk(c, device="cpu"),
+                                            ck_w.load_chunk(c, device="cpu")))]
+    fr = ", ".join(f"{k} {v:.6f}" for k, v in s["exit_code_fracs"].items())
+    say(f"phase 14 config 5 [{card}]: {s['n_scenarios']} scenarios, resumed "
+        f"{s['resumed_chunks']} chunks in a fresh process; resilience "
+        f"{s['resilience_rate']:.6f} (bar 0.999); exit codes {fr}; mean iters "
+        f"{s['mean_iters']:.4f}, p99 {s['iters_p99']:.1f}, max "
+        f"{s['max_iters']}; resumed run {s['solves_per_s']:.1f} solves/s "
+        f"(steady state {s['steady_state_solves_per_s']:.1f}), uninterrupted "
+        f"run {whole['solves_per_s']:.1f} (steady state "
+        f"{whole['steady_state_solves_per_s']:.1f}); two processes' wall "
+        f"{wall:.1f} s; uninterrupted K1 {l1} = host-loop steps {steps}; "
+        f"chunks differing from the uninterrupted run: {differ}")
+    if not (s["resumed_chunks"] == MC_RESUME_AFTER
+            and s["n_scenarios"] == MC_CHUNKS * MC_BATCH):
+        fail(f"config 5: resumed {s['resumed_chunks']}, n "
+             f"{s['n_scenarios']}")
+    if not s["resilience_rate"] >= 0.999:
+        fail(f"config 5: resilience {s['resilience_rate']}")
+    if differ:
+        fail(f"config 5: chunks {differ} differ from the uninterrupted run")
+    if not l1 == steps > 0:
+        fail(f"config 5: K1 {l1} vs {steps} host-loop steps")
+
+
+def check_entry(dev):
+    """Phase 14(d): entry() and dryrun_multichip(1) on the card."""
+    fn, args = entry.entry(device=dev)
+    reset_counts()
+    out, ec, kkt = fn(*args)
+    torch.cuda.synchronize()
+    (l1, l2, l3, l4a, l4b), steps = launch_counts(), ipm_lanes.STEPS
+    fn_c, args_c = entry.entry(device="cpu")
+    ec_c = int(fn_c(*args_c)[1])
+    say(f"phase 14 entry(): mpc_output {tuple(out.shape)} finite "
+        f"{bool(out.isfinite().all())}, exit code {int(ec)} (CPU {ec_c}), "
+        f"kkt {float(kkt):.2e}; K2 {l2} K3 {l3} K1 {l1}, host-loop steps "
+        f"{steps}")
+    if not (bool(out.isfinite().all()) and int(ec) == ec_c):
+        fail(f"entry(): exit code {int(ec)} vs CPU {ec_c} or not finite")
+    if not (l2 == l3 == 1 and l1 == steps > 0 and l4a == l4b == 0):
+        fail(f"entry() launches: K1 {l1} vs {steps}, K2 {l2}, K3 {l3}")
+    t0 = time.perf_counter()
+    rep = entry.dryrun_multichip(1, timeout=300)
+    say(f"phase 14 dryrun_multichip(1): {rep} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    if rep["shape"] != [2, DEFAULT_CONFIG.model.N + 1, 17]:
+        fail(f"dryrun_multichip: {rep}")
+
+
+def run_slice5(dev, card):
+    """Phase 14: (a) the FORCES API, (b) the sharded solve, (c) BASELINE
+    config 5 resumed, (d) entry() and dryrun_multichip(1)."""
+    check_forces_api(dev, card)
+    check_sharded(dev, card)
+    check_monte_carlo(dev, card)
+    check_entry(dev)
+
+
 def lane_position_check(state, params, cfg, seed):
     """K1 on a permutation of the lanes gives the permuted outputs bit for
     bit, and the 256 lanes that the tier schedule would compact (the
@@ -1748,9 +2081,7 @@ def lane_position_check(state, params, cfg, seed):
         got = ipm_kernel.ipm_iteration_fused(*iter_args(sub, sub_p, cfg))
         torch.cuda.synchronize()
         for name, g, r in zip(("Z", "lam", "s", "mu_d", "scal"), got, full):
-            r = r[..., idx]
-            if not (torch.equal(g.isnan(), r.isnan())
-                    and torch.equal(g.nan_to_num(), r.nan_to_num())):
+            if not bit_equal(g, r[..., idx]):
                 fail(f"K1 on {label}: {name} differs from the full launch")
     return (f"bit-identical on a permutation of the {B} lanes and on "
             f"{tier.numel()} tier lanes launched alone")
@@ -1912,6 +2243,9 @@ def main() -> int:
     # ---- phases 12-13: the closed loop -------------------------------------
     check_fleet(dev, card)
     check_robot(dev, card)
+
+    # ---- phase 14: the surfaces and scale-out ------------------------------
+    run_slice5(dev, card)
 
     say(f"chip_smoke total {time.perf_counter() - T0:.1f} s")
     # max_abs_err: f32 kernel vs plain from the initial state, the check

@@ -1,7 +1,7 @@
 """9-state quadrotor dynamics with external force and rotor drag (torch).
 
-Port of forces_resilient_planner_tpu/dynamics/quadrotor.py:27-201 (the
-reference model: nonlinear_dynamics.m:20-40, Heun RK2 of transit.m).
+Port of forces_resilient_planner_tpu/dynamics/quadrotor.py (the reference
+model: nonlinear_dynamics.m:20-40, Heun RK2 of transit.m).
 
 State  x = [px py pz vx vy vz roll pitch yaw]
 Input  u = [wx wy wz thrust]
@@ -68,6 +68,39 @@ def rk2_step(
     k1 = continuous_dynamics(x, u, f_ext, cfg)
     k2 = continuous_dynamics(x + cfg.dt * k1, u, f_ext, cfg)
     return x + 0.5 * cfg.dt * (k1 + k2)
+
+
+def ab_jacobians(
+    x: torch.Tensor, u: torch.Tensor, f_ext: torch.Tensor, cfg: ModelConfig
+):
+    """Discrete-time Jacobians (A (9, 9), B (9, 4)) of rk2_step at one point,
+    by forward-mode autodiff (the hand-derived updateMatrix,
+    nmpc_solver.cpp:615-699).  The solver uses rk2_jacobians_analytic."""
+    A = torch.func.jacfwd(lambda xx: rk2_step(xx, u, f_ext, cfg))(x)
+    B = torch.func.jacfwd(lambda uu: rk2_step(x, uu, f_ext, cfg))(u)
+    return A, B
+
+
+def continuous_jacobians(
+    x: torch.Tensor, u: torch.Tensor, f_ext: torch.Tensor, cfg: ModelConfig
+):
+    """Continuous-time (At (9, 9), Bt (9, 4)) of xdot = f(x, u) at one point,
+    by forward-mode autodiff.  The tubes use continuous_jacobians_analytic."""
+    At = torch.func.jacfwd(
+        lambda xx: continuous_dynamics(xx, u, f_ext, cfg))(x)
+    Bt = torch.func.jacfwd(
+        lambda uu: continuous_dynamics(x, uu, f_ext, cfg))(u)
+    return At, Bt
+
+
+def thrust_world_acc(rpy: torch.Tensor, thrust: torch.Tensor,
+                     cfg: ModelConfig) -> torch.Tensor:
+    """World-frame acceleration implied by attitude and thrust,
+    R e3 T/m - g e3 (nmpc_solver.cpp:176-180, 925-931).  (..., 3)."""
+    acc = euler_to_rot(rpy)[..., :, 2] * (thrust[..., None] / cfg.mass)
+    g_vec = torch.zeros_like(acc)
+    g_vec[..., 2] = cfg.g
+    return acc - g_vec
 
 
 def _mm3(a, b):

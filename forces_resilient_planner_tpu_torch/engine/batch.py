@@ -182,10 +182,12 @@ class SweepStats(NamedTuple):
 
 def sweep_stats(res: SolveResult) -> SweepStats:
     """Reductions over a batch: "solved" is exit_code == 1, never a sum of
-    exit codes (they include negatives)."""
+    exit codes (they include negatives).  Every leaf lives on the result's
+    device, so the stats can be all-reduced across ranks as they are."""
     solved = res.exit_code == 1
     return SweepStats(
-        n=torch.tensor(float(res.exit_code.shape[0])),
+        n=torch.tensor(float(res.exit_code.shape[0]),
+                       device=res.exit_code.device),
         n_solved=solved.to(torch.float32).sum(),
         mean_iters=res.iters.to(torch.float32).mean(),
         max_kkt_solved=torch.where(

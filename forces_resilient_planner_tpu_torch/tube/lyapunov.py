@@ -16,8 +16,10 @@ Port of the main path of forces_resilient_planner_tpu/tube/lyapunov.py
 The per-stage part runs in ops/tube_kernel.py::tube_stage_lanes (the CUDA
 kernel on a CUDA tensor, the formulas below on a CPU tensor); the O(N)
 Minkowski recursion and the Denman-Beavers square root stay here.  The
-oracle-only functions of the JAX module (lyapunov_solve, lyapunov_gramian,
-channel_Qd, sqrtm_psd) are not ported: the tests use the JAX ones.
+oracle functions at the end (lyapunov_solve, lyapunov_gramian, channel_Qd,
+sqrtm_psd) solve the same per-stage problem by other algorithms (a
+Kronecker solve, Van Loan's block exponential, eigh); no path of the
+planner calls them, the tests hold the fast path against them.
 """
 from __future__ import annotations
 
@@ -207,3 +209,57 @@ def tighten_corridor(A: torch.Tensor, b: torch.Tensor,
     stay as they are."""
     Ea = A @ E.transpose(-1, -2)                                 # (..., nh, 3)
     return b - norm3(Ea)
+
+
+# ---- oracle functions (JAX tube/lyapunov.py:51-100, 237-280) ---------------
+
+def lyapunov_solve(Phi: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
+    """Solve Phi X + X Phi^T = W (n, n) by the Kronecker-vectorized system:
+    with row-major vec the operator is kron(Phi, I) + kron(I, Phi)."""
+    n = Phi.shape[-1]
+    eye = torch.eye(n, dtype=Phi.dtype, device=Phi.device)
+    Kmat = torch.kron(Phi, eye) + torch.kron(eye, Phi)
+    return torch.linalg.solve(Kmat, W.reshape(-1)).reshape(n, n)
+
+
+def lyapunov_gramian(Phi: torch.Tensor, C: torch.Tensor,
+                     t: float) -> torch.Tensor:
+    """X = int_0^t e^{-Phi s} C e^{-Phi^T s} ds, the unique solution of
+    Phi X + X Phi^T = C - e^{-Phi t} C e^{-Phi^T t}, by Van Loan's block
+    exponential: expm([[-Phi, C], [0, Phi^T]] t) = [[., F12], [0, F22]] with
+    F12 = X e^{Phi^T t}, F22 = e^{Phi^T t}, so X = F12 F22^{-1}.
+    Phi, C (..., n, n)."""
+    n = Phi.shape[-1]
+    PhiT = Phi.transpose(-1, -2)
+    H = torch.cat([torch.cat([-Phi, C], dim=-1),
+                   torch.cat([torch.zeros_like(Phi), PhiT], dim=-1)], dim=-2)
+    F = torch.linalg.matrix_exp(H * t)
+    F12, F22 = F[..., :n, n:], F[..., n:, n:]
+    return torch.linalg.solve(F22.transpose(-1, -2),
+                              F12.transpose(-1, -2)).transpose(-1, -2)
+
+
+def sqrtm_psd(Q: torch.Tensor) -> torch.Tensor:
+    """Symmetric PSD square root by eigendecomposition
+    (nmpc_solver.cpp:512-513), eigenvalues clipped at 0."""
+    w, V = torch.linalg.eigh(Q)
+    return (V * torch.sqrt(w.clamp(min=0.0))[..., None, :]) @ V.transpose(
+        -1, -2)
+
+
+def channel_Qd(Phi: torch.Tensor, t: float,
+               w_bound: torch.Tensor) -> torch.Tensor:
+    """Combined disturbance ellipsoid Qd (..., 9, 9) of the three velocity
+    channels (D = [e_x e_y e_z] on the velocity rows, nmpc_solver.cpp:24-26),
+    each Gramian by lyapunov_gramian."""
+    trs, Xn = [], []
+    for i in range(3):
+        Nt = torch.zeros_like(Phi)
+        Nt[..., 3 + i, 3 + i] = t * w_bound[i] ** 2
+        X = lyapunov_gramian(Phi, Nt, t)
+        trX = torch.sqrt(torch.clamp(
+            torch.diagonal(X, dim1=-2, dim2=-1).sum(-1), min=1e-30))
+        trs.append(trX)
+        Xn.append(X / trX[..., None, None])
+    return (trs[0] + trs[1] + trs[2])[..., None, None] * (Xn[0] + Xn[1]
+                                                          + Xn[2])

@@ -138,6 +138,20 @@ def test_sweep_stats_match_jax(jax_ref, port64):
                                                  rel=1e-8)
 
 
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+def test_sweep_stats_leaves_live_on_the_result_device(port64, device):
+    """Every SweepStats leaf is on the result's device (an all-reduce of
+    the stats across ranks needs no copy); the meta device stands in for a
+    card here."""
+    from forces_resilient_planner_tpu_torch.solver.ipm import SolveResult
+
+    res = SolveResult(*(a.to(device) for a in port64))
+    stats = tb.sweep_stats(res)
+    for name, leaf in zip(stats._fields, stats):
+        assert leaf.device.type == device, name
+        assert leaf.shape == (), name
+
+
 def test_scenario_stream_equals_grid_solves(port64):
     sets = [_seeds(), _seeds(8)]
     res = tb.solve_scenario_stream(CFG, sets, bench.HALVES,

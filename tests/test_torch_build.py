@@ -51,6 +51,20 @@ def _run(code_or_args, timeout=300):
     "forces_resilient_planner_tpu_torch.mapping.occ_grid",
     "forces_resilient_planner_tpu_torch.search.kinodynamic",
     "forces_resilient_planner_tpu_torch.tools.closed_loop_probe",
+    "forces_resilient_planner_tpu_torch.dynamics.quadrotor",
+    "forces_resilient_planner_tpu_torch.solver.nlp",
+    "forces_resilient_planner_tpu_torch.solver.forces_api",
+    "forces_resilient_planner_tpu_torch.tube.lyapunov",
+    "forces_resilient_planner_tpu_torch.utils.checkpoint",
+    "forces_resilient_planner_tpu_torch.parallel.mesh",
+    "forces_resilient_planner_tpu_torch.entry",
+    "forces_resilient_planner_tpu_torch.corridor.variants",
+    "forces_resilient_planner_tpu_torch.oracle.cpu_oracle",
+    "forces_resilient_planner_tpu_torch.examples.forces_api_migration",
+    "forces_resilient_planner_tpu_torch.examples.config5_monte_carlo",
+    "forces_resilient_planner_tpu_torch.ops._build",
+    "forces_resilient_planner_tpu_torch.solver.ipm",
+    "forces_resilient_planner_tpu_torch.utils.lanes",
 ])
 def test_port_imports_no_jax(module):
     """Neither jax nor any module of the JAX package is loaded."""
@@ -62,6 +76,27 @@ def test_port_imports_no_jax(module):
         "assert not bad, bad"
     )
     assert proc.returncode == 0, proc.stderr
+
+
+def _port_modules():
+    """Every module file of the port, as a dotted name."""
+    root = os.path.join(REPO, "forces_resilient_planner_tpu_torch")
+    out = set()
+    for d, _, files in os.walk(root):
+        for f in files:
+            if f.endswith(".py") and f != "__init__.py":
+                rel = os.path.relpath(os.path.join(d, f[:-3]), REPO)
+                out.add(rel.replace(os.sep, "."))
+    return out
+
+
+def test_the_import_scan_covers_every_port_module():
+    """The scan above names every module of the port (a new module joins
+    the list, or this fails)."""
+    params = next(m for m in test_port_imports_no_jax.pytestmark
+                  if m.name == "parametrize").args[1]
+    assert _port_modules() <= set(params), sorted(_port_modules()
+                                                  - set(params))
 
 
 def _imported_modules(path):

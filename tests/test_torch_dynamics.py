@@ -83,3 +83,66 @@ def test_rk2_jacobian_matches_finite_difference():
         fd = (tq.rk2_step(x, u + e, f, C.model)
               - tq.rk2_step(x, u - e, f, C.model)) / (2 * h)
         np.testing.assert_allclose(B[..., j].numpy(), fd.numpy(), atol=1e-7)
+
+
+@pytest.fixture(scope="module")
+def jax_autodiff():
+    """JAX's autodiff Jacobians at 8 points (one jitted vmap each)."""
+    x, u, f = _inputs(8)
+
+    def both(fn):
+        return jax.jit(jax.vmap(lambda a, b, c: fn(a, b, c, C.model)))(x, u, f)
+
+    return both(jq.ab_jacobians), both(jq.continuous_jacobians)
+
+
+def _close(got, want, tol=ATOL):
+    want = np.asarray(want)
+    err = np.max(np.abs(got.numpy() - want) / (1.0 + np.abs(want)))
+    assert err <= tol, err
+
+
+@pytest.mark.parametrize("name", ["ab_jacobians", "continuous_jacobians"])
+def test_autodiff_jacobians_match_jax(jax_autodiff, name):
+    """torch.func.jacfwd of the port's rk2_step / continuous_dynamics
+    against jax.jacfwd of JAX's, within 1e-12 (1 + |ref|), point by point."""
+    ref = jax_autodiff[name == "continuous_jacobians"]
+    x, u, f = _inputs(8)
+    for i in range(8):
+        A, B = getattr(tq, name)(_t(x[i]), _t(u[i]), _t(f[i]), C.model)
+        assert A.shape == (9, 9) and B.shape == (9, 4)
+        _close(A, ref[0][i])
+        _close(B, ref[1][i])
+
+
+def test_autodiff_jacobians_match_the_analytic_ones():
+    """As tests/test_dynamics.py holds JAX's: the autodiff Jacobians equal
+    the closed forms the solver and the tubes use."""
+    x, u, f = _inputs(8)
+    Aa, Ba = tq.rk2_jacobians_analytic(_t(x), _t(u), _t(f), C.model)
+    Ja, Bca = tq.continuous_jacobians_analytic(_t(x), _t(u), C.model)
+    for i in range(8):
+        A, B = tq.ab_jacobians(_t(x[i]), _t(u[i]), _t(f[i]), C.model)
+        _close(A, Aa[i].numpy())
+        _close(B, Ba[i].numpy())
+        At, Bt = tq.continuous_jacobians(_t(x[i]), _t(u[i]), _t(f[i]),
+                                         C.model)
+        _close(At, Ja[i].numpy())
+        _close(Bt, Bca[i].numpy())
+        # structure (nmpc_solver.cpp:8-26): dp/dv = I, deuler/du = I
+        np.testing.assert_array_equal(At[0:3, 3:6].numpy(), np.eye(3))
+        np.testing.assert_array_equal(Bt[6:9, 0:3].numpy(), np.eye(3))
+
+
+def test_thrust_world_acc_matches_jax():
+    x, u, _ = _inputs()
+    ref = jax.jit(lambda r, t: jq.thrust_world_acc(r, t, C.model))(
+        x[:, 6:9], u[:, 3])
+    got = tq.thrust_world_acc(_t(x[:, 6:9]), _t(u[:, 3]), C.model)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=0,
+                               atol=ATOL)
+    # hover thrust at level attitude cancels gravity
+    hov = tq.thrust_world_acc(torch.zeros(3, dtype=torch.float64),
+                              torch.tensor(C.model.hover_thrust,
+                                           dtype=torch.float64), C.model)
+    np.testing.assert_allclose(hov.numpy(), 0.0, atol=1e-12)

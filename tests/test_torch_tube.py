@@ -4,7 +4,10 @@ a 3-robot horizon) drawn from a seed.  f64: closed_loop_phi, the channel
 Gramians, Qd, e^{Phi dt}, the DB square root, the Minkowski sum, the
 batched tubes and the tightening within 1e-10 (relative to 1 + |ref|);
 f32: Qd within 1e-6 of the JAX f32 XLA path; an explicit gain other than the
-config's through both tube entry points and through the kernel source.  The Taylor term counts are
+config's through both tube entry points and through the kernel source.
+The port's oracle functions (lyapunov_solve, lyapunov_gramian, channel_Qd,
+sqrtm_psd) within 1e-10 of JAX's; the fast path held against the port's
+own oracle, as tests/test_tube.py holds JAX's.  The Taylor term counts are
 pinned: the port's equal the JAX package's and the ones csrc/tube_stage.cu
 is launched with.  The CUDA kernel is held against its plain version on
 the card (cuda-marked test, and chip_smoke.py)."""
@@ -220,6 +223,114 @@ def test_sqrtm_minkowski_and_tightening_match_jax():
     bt = tl.tighten_corridor(t(A), t(b), E)
     _close(bt, bt_j)
     assert torch.equal(bt[:, 24:], t(b)[:, 24:])
+
+
+# ---- the oracle functions ----------------------------------------------------
+
+ORACLES = ("lyapunov_solve", "lyapunov_gramian", "channel_Qd", "sqrtm_psd")
+
+
+def _oracle_inputs(n=8, seed=5):
+    """Tube-regime Phi's points, symmetric right-hand sides, PSD 3x3's."""
+    x, u = _points(n, seed)
+    rng = np.random.default_rng(seed + 1)
+    W = rng.standard_normal((n, 9, 9))
+    M = rng.standard_normal((n, 3, 3))
+    Q = M @ np.swapaxes(M, -1, -2) + 0.05 * np.eye(3)
+    return x, u, W + np.swapaxes(W, -1, -2), Q
+
+
+@pytest.fixture(scope="module")
+def jax_oracle():
+    """JAX's Phi and its four oracle functions at f64 (one jitted call)."""
+    x, u, W, Q = _oracle_inputs()
+    K = jnp.asarray(C.tube.K, jnp.float64)
+    w = jnp.full((3,), C.tube.ext_noise_bound)
+    dt = C.model.dt
+
+    @jax.jit
+    def f(x, u, W, Q):
+        Phi = jax.vmap(lambda a, b: jl.closed_loop_phi(a, b, K, C.model))(x, u)
+        return Phi, {
+            "lyapunov_solve": jax.vmap(jl.lyapunov_solve)(Phi, W),
+            "lyapunov_gramian": jax.vmap(
+                lambda P, Wi: jl.lyapunov_gramian(P, Wi, dt))(Phi, W),
+            "channel_Qd": jax.vmap(lambda P: jl.channel_Qd(P, dt, w))(Phi),
+            "sqrtm_psd": jl.sqrtm_psd(Q),
+        }
+
+    return f(x, u, W, Q)
+
+
+def _port_oracle(name, Phi, W, Q):
+    w = torch.full((3,), C.tube.ext_noise_bound, dtype=T64)
+    if name == "lyapunov_solve":
+        return torch.stack([tl.lyapunov_solve(P, Wi) for P, Wi in zip(Phi, W)])
+    if name == "lyapunov_gramian":
+        return tl.lyapunov_gramian(Phi, W, C.model.dt)
+    if name == "channel_Qd":
+        return tl.channel_Qd(Phi, C.model.dt, w)
+    return tl.sqrtm_psd(Q)
+
+
+@pytest.mark.parametrize("name", ORACLES)
+def test_oracle_functions_match_jax(jax_oracle, name):
+    """The port's oracle functions on JAX's Phi within 1e-10 (1 + |ref|):
+    torch.linalg.matrix_exp, eigh and solve against the JAX package's
+    Pade-13 expm, eigh and LU."""
+    Phi_j, ref = jax_oracle
+    _, _, W, Q = _oracle_inputs()
+    t = torch.as_tensor
+    got = _port_oracle(name, t(np.array(Phi_j)), t(W), t(Q))
+    _close(got, ref[name])
+
+
+def test_lyapunov_solve_residual_and_the_gramian_identity():
+    """As tests/test_tube.py holds JAX's: the Kronecker solve's residual,
+    and the Gramian as the solution of the getDistrEllipsoid problem."""
+    x, u, W, _ = _oracle_inputs(4, seed=9)
+    K = torch.as_tensor(C.tube.K, dtype=T64)
+    Phi = tl.closed_loop_phi(torch.as_tensor(x), torch.as_tensor(u), K,
+                             C.model)
+    dt = C.model.dt
+    for P, Wi in zip(Phi, torch.as_tensor(W)):
+        X = tl.lyapunov_solve(P, Wi)
+        np.testing.assert_allclose((P @ X + X @ P.T).numpy(), Wi.numpy(),
+                                   atol=1e-9)
+        G = tl.lyapunov_gramian(P, Wi, dt)
+        E = torch.linalg.matrix_exp(-P * dt)
+        want = tl.lyapunov_solve(P, Wi - E @ Wi @ E.T)
+        _close(G, want.numpy(), 1e-9)
+
+
+def test_fast_path_matches_the_ports_oracle():
+    """The matmul-only Gramian path (channel_Qd_fast, which tube_stage_lanes'
+    plain version and K2 compute) against the port's own Van Loan oracle
+    (tests/test_tube.py's check of JAX's, on the port)."""
+    x, u = _points(10, seed=17)
+    K = torch.as_tensor(C.tube.K, dtype=T64)
+    Phi = tl.closed_loop_phi(torch.as_tensor(x), torch.as_tensor(u), K,
+                             C.model)
+    w = torch.full((3,), C.tube.ext_noise_bound, dtype=T64)
+    Qd_ref = tl.channel_Qd(Phi, C.model.dt, w)
+    Qd, Mp = tl.channel_Qd_fast(Phi, C.model.dt, w)
+    assert (Qd - Qd_ref).abs().max().item() < 1e-14
+    Mp_ref = torch.linalg.matrix_exp(Phi * C.model.dt)
+    assert (Mp - Mp_ref).abs().max().item() < 1e-12
+    Qd_k, _, _, _ = tube_kernel.tube_stage_reference(
+        torch.as_tensor(x), torch.as_tensor(u), C.model, C.tube)
+    assert (Qd_k - Qd_ref).abs().max().item() < 1e-14
+
+
+def test_sqrtm_db_matches_the_ports_eigh():
+    rng = np.random.default_rng(3)
+    for _ in range(20):
+        A = rng.normal(0, 1.0, (3, 3))
+        Q = torch.as_tensor(A @ A.T * 10 ** rng.uniform(-4, 1))
+        got = tl.sqrtm_psd_db(Q)
+        want = tl.sqrtm_psd(Q)
+        scale = 1e-9 + want.abs().max().item()
+        assert (got - want).abs().max().item() / scale < 1e-9
 
 
 @pytest.mark.cuda
