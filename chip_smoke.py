@@ -31,7 +31,13 @@ CUDA kernel against its plain PyTorch version on the card:
   mesh.py in a world of one NCCL rank, BASELINE config 5's 102,400-
   scenario sweep through the ported example, interrupted after 8
   checkpointed chunks and resumed in a fresh process, and entry.py's
-  entry() and dryrun_multichip(1) (K1, K2, K3).
+  entry() and dryrun_multichip(1) (K1, K2, K3);
+  slice 6, the last surfaces: the adversarial stress batch (engine/
+  workloads.py::stress_params) at f32 and f64 through K1, a reduced
+  parity certificate against the independent SLSQP oracle (tools/
+  parity_certificate.py, the oracle in a pool of CPU processes), the
+  shipped solver (utils/aot.py) loaded in a process without nvcc, and the
+  BASELINE examples 1-4 and 6 (K1, K2, K3).
 
 Phases, one line each (any failure exits non-zero and nothing after it is
 printed):
@@ -176,6 +182,26 @@ printed):
      on the card: finite, its exit code equal to the same call on the CPU,
      K2 and K3 launched once and K1 once per host-loop step; then
      dryrun_multichip(1) (one spawned NCCL rank) passing its shape check
+  15. slice 6 at DEFAULT_CONFIG: (a) the stress batch, B = 512 (seed 123,
+     the bench tiers), at f64 and f32 through K1: K1 once per host-loop
+     step, Z finite, no false optimal (exit 1 with a corridor violation
+     beyond the slack) at either precision; the f64 card solve's exit codes
+     and iterations identical to the plain f64 solve on the card, max |dZ|
+     printed; the f32 exit families beside the f64 ones. (b) the reduced
+     certificate: the bench grid of seed 1000 (B = 4096) and the fence
+     scenes (B = 128, built at f64 on the CPU) at f32 through K1, 2 lanes
+     of each picked hardest first and re-solved by the oracle's multi-start
+     in a pool of 4 CPU processes (started first, collected last): max
+     |u_card - u_oracle| <= 1e-3 on every lane. (c) the shipped solver:
+     the bench configuration exported for B = 4096 f32 here, loaded and
+     run in a fresh process whose PATH has no nvcc and that has no
+     CUDA_HOME: bit-equal to this process's solve, no build in the child,
+     its K1 launches equal to this process's; its wall against phase 1's
+     build seconds. (d) the examples at their defaults (config 1 also with
+     --oracle, config 6 at FLEET_EXAMPLE_ARGS): each returns and prints its
+     line; K1 once per host-loop step; config 1 exit 1 (oracle |du| <=
+     1e-3), config 2 exit 1 with K2 = K3 = 1, config 3 K2 = K3 = solves,
+     config 4 solved >= 0.999, config 6 no collision, K2 = K3 = ticks
 
 Every line is prefixed with the script's elapsed seconds.  The
 {"kernels"} line's bound_ms is the larger of the bytes the kernel must
@@ -188,6 +214,9 @@ f32 kernel against its plain version on the main path's inputs at the
 main path's shape (K1: the grid's initial IPM state; K2: the step's stage lanes; K3:
 the step's segments and clouds; K4: the predictor-corrector grid's initial
 calls; K5: the random blocks of phase 9).
+
+K1's, K2's and K3's entries also carry launches_phase15, their launches
+on phase 15's paths.
 
 Then the script's total seconds, a {"kernels": [...]} JSON line, the card's
 name and power limit, and last {"ok": true, "device": ...}.  Imports
@@ -222,7 +251,12 @@ from forces_resilient_planner_tpu_torch.engine import (
     workloads,
 )
 from forces_resilient_planner_tpu_torch.examples import (
+    config1_hover_to_goal as config1,
+    config2_constant_force as config2,
+    config3_obstacle_scene as config3,
+    config4_batched as config4,
     config5_monte_carlo as config5,
+    config6_fleet as config6,
     forces_api_migration as migration,
 )
 from forces_resilient_planner_tpu_torch.mapping import occ_grid
@@ -234,6 +268,7 @@ from forces_resilient_planner_tpu_torch.ops import (
     tube_kernel,
 )
 from forces_resilient_planner_tpu_torch.oracle import cpu_oracle
+from forces_resilient_planner_tpu_torch.oracle import pool as oracle_pool
 from forces_resilient_planner_tpu_torch.parallel import mesh
 from forces_resilient_planner_tpu_torch.search import kinodynamic
 from forces_resilient_planner_tpu_torch.solver import (
@@ -246,8 +281,12 @@ from forces_resilient_planner_tpu_torch.solver.problems import (
     box_corridor,
     hover_warm_start,
 )
+from forces_resilient_planner_tpu_torch.tools import (
+    parity_certificate as parity,
+    stress_oracle,
+)
 from forces_resilient_planner_tpu_torch.tube import lyapunov
-from forces_resilient_planner_tpu_torch.utils import checkpoint
+from forces_resilient_planner_tpu_torch.utils import aot, checkpoint
 
 CSRC = "forces_resilient_planner_tpu_torch/ops/csrc/"
 KERNEL_SOURCE = CSRC + "ipm_iteration.cu"
@@ -274,6 +313,11 @@ ROBOT_HOLD_SOLVES = range(0, 1000, 4)  # phase 13: the fence scene's solves
 MC_CHUNKS, MC_RESUME_AFTER = 25, 8
 MC_BATCH = workloads.N_GOALS * workloads.N_FORCES
 MC_ARGS: list = []
+# phase 15: the stress batch, the reduced certificate's seed sets and lanes
+# a family, config 6's fleet size and seconds
+STRESS_B = 512
+CERT_SEEDS, CERT_BOX_LANES, CERT_FENCE_LANES = (1000,), 2, 2
+FLEET_EXAMPLE_ARGS = ["8", "2.0"]
 
 
 def fail(msg: str):
@@ -287,15 +331,6 @@ T0 = time.perf_counter()
 def say(msg: str):
     """One line, prefixed with the script's elapsed seconds."""
     print(f"[{time.perf_counter() - T0:6.1f} s] {msg}", flush=True)
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip().splitlines()
-    return out[0]
 
 
 def bench_lanes(cfg, seed, dtype, device):
@@ -614,49 +649,6 @@ def corridor_rows(args, ccfg=DEFAULT_CONFIG.corridor,
     return (Ag - Ar).abs().amax(dim=(-1, -2)), (bg - br).abs().amax(dim=-1)
 
 
-def certificate(res, inputs, cfg, lanes=64, chunk=128):
-    """The f64 audit of tools/tpu_parity_check.py:438-530 in torch on the
-    CPU: obstacle penetration into the tightened polytopes, the accepted
-    trajectories' corridor violation, and the card's NLP of the first
-    `lanes` robots re-solved by the port's plain solver at f64."""
-    N = cfg.model.N
-    A = res.corridor_A.double().cpu()
-    bt = res.corridor_b_tight.double().cpu()
-    obs = inputs["obstacles"].double().cpu()
-    mask = inputs["obstacle_mask"].cpu()
-    ec = res.exit_code.cpu()
-    out = res.mpc_output.double().cpu()
-    act = A.norm(dim=-1) > 1e-9
-    max_pen, n_pen = 0.0, 0
-    for i in range(0, A.shape[0], chunk):
-        sl = slice(i, i + chunk)
-        s = torch.einsum("bnkj,bmj->bnmk", A[sl], obs[sl]) - bt[sl, :, None]
-        s = torch.where(act[sl, :, None], s, -torch.inf)
-        depth = torch.where(mask[sl, None], -s.amax(dim=-1), -torch.inf)
-        pen = depth.clamp(min=0.0)
-        max_pen = max(max_pen, pen.max().item())
-        n_pen += int((pen.amax(dim=-1) > 0).sum())
-    solved = ec == 1
-    pos = out[:, :N, 8:11]
-    viol = torch.einsum("bnkj,bnj->bnk", A, pos) - bt
-    viol = torch.where(act, viol, -torch.inf)[solved]
-    max_viol = viol.max().item() if solved.any() else float("-inf")
-
-    sl = slice(0, lanes)
-    inp = {k: v[sl].cpu() for k, v in inputs.items()}
-    prev = inp["mpc_output"].double()
-    ref64 = type(res.ref)(*(t[sl].double().cpu() for t in res.ref))
-    params = pipeline_batch.pack_nlp_params(
-        ref64, A[sl], bt[sl], inp["f_ext"].double(), prev, inp["use_final"],
-        cfg)
-    r64 = ipm_lanes.solve_batch_lanes_tiered(
-        prev[:, 1:N + 1], params, cfg.model, cfg.solver)
-    both = (r64.exit_code == 1) & solved[sl]
-    du = (r64.Z[:, :, 0:4] - out[sl, :N, 0:4]).abs().amax(dim=(1, 2))
-    du_max = du[both].max().item() if both.any() else float("inf")
-    return max_pen, n_pen, max_viol, int(both.sum()), du_max
-
-
 def stage_segments(inputs, cfg):
     """The corridor kernel's inputs on the main path: every stage's
     reference point, its second seed point, and the robot's cloud."""
@@ -809,7 +801,8 @@ def check_step(inputs, dev, label, cfg=DEFAULT_CONFIG, phase=7,
             fail(f"non-finite {name} on accepted robots")
     if not all(torch.isfinite(t).all() for t in res.ref):
         fail("non-finite references")
-    pen, n_pen, viol, n_both, du = certificate(res, inputs, cfg)
+    pen, n_pen, viol, n_both, du = parity.pipeline_audit(res, inputs,
+                                                         cfg)
     solved64 = int(acc[:64].sum())
     codes = {int(c): int((ec == c).sum()) for c in ec.unique()}
     say(f"phase {phase} main path nmpc_step_batched B={B} f32{label}: solved "
@@ -2063,6 +2056,258 @@ def run_slice5(dev, card):
     check_entry(dev)
 
 
+# ---------------------------------------------------------------------------
+# slice 6: the stress batch, the certificate, the shipped solver, examples
+# ---------------------------------------------------------------------------
+
+def check_stress(dev):
+    """Phase 15(a): the stress batch at f64 and f32 through K1, the f64
+    solve against the plain versions on the card.  Returns K1's launches
+    (f64, f32)."""
+    cfg = workloads.bench_config()
+    slack = cfg.solver.corridor_slack
+    res, l1 = {}, {}
+    for name, dtype in (("f64", torch.float64), ("f32", torch.float32)):
+        reset_counts()
+        r, params = stress_oracle.solve_stress(STRESS_B, dtype, dev)
+        torch.cuda.synchronize()
+        counts, steps = launch_counts(), ipm_lanes.STEPS
+        if not solver_launches_ok(counts, steps, cfg.solver):
+            fail(f"stress {name}: K1 {counts[0]}, K4a {counts[3]} vs "
+                 f"{steps} host-loop steps")
+        if not torch.isfinite(r.Z).all():
+            fail(f"stress {name}: non-finite Z")
+        bad = stress_oracle.false_optimals(r, params, slack)
+        ec = r.exit_code.cpu().numpy()
+        say(f"phase 15 stress B={STRESS_B} {name}: solved "
+            f"{(ec == 1).mean():.4f}, exit families "
+            f"{stress_oracle.families(ec)}, false optimals {bad}, K1 "
+            f"{counts[0]} = host-loop steps {steps}, Z finite")
+        if bad:
+            fail(f"stress {name}: false optimals on lanes {bad}")
+        res[name], l1[name] = r, counts[0]
+    with plain_routes():
+        plain, _ = stress_oracle.solve_stress(STRESS_B, torch.float64, dev)
+    torch.cuda.synchronize()
+    g = res["f64"]
+    same_ec = torch.equal(plain.exit_code, g.exit_code)
+    same_it = torch.equal(plain.iters, g.iters)
+    dZ = (plain.Z - g.Z).abs().max().item()
+    ec64, ec32 = (r.exit_code.cpu().numpy() for r in (g, res["f32"]))
+    conf = stress_oracle.confusion(ec64, ec32)
+    say(f"phase 15 stress f64 card vs the plain f64 solve on the card: exit "
+        f"codes identical {same_ec}, iterations identical {same_it}, max "
+        f"|dZ| {dZ:.3e}; f32 families {stress_oracle.families(ec32)} "
+        f"beside f64 {stress_oracle.families(ec64)}; f64 vs f32 {conf}")
+    if not (same_ec and same_it):
+        fail("stress f64: the card's exit codes or iterations differ from "
+             "the plain solve's")
+    return l1["f64"], l1["f32"]
+
+
+def start_certificate(dev):
+    """Phase 15(b), the card's half: CERT_SEEDS' bench grids and the fence
+    scenes at f32 through K1, their picked lanes handed to the oracle pool.
+    Returns what finish_certificate needs and K1's launches."""
+    reset_counts()
+    t0 = time.perf_counter()
+    lanes, fracs = [], {}
+    for seed in CERT_SEEDS:
+        got, fracs[f"box{seed}"] = parity.box_lanes(seed, CERT_BOX_LANES, dev)
+        lanes += got
+    got, fracs["fence"] = parity.fence_lanes(CERT_FENCE_LANES, dev)
+    lanes += got
+    torch.cuda.synchronize()
+    counts, steps = launch_counts(), ipm_lanes.STEPS
+    if not solver_launches_ok(counts, steps, workloads.bench_config().solver):
+        fail(f"certificate: K1 {counts[0]} vs {steps} host-loop steps")
+    say(f"phase 15 certificate, card: solved {fracs}, lanes "
+        f"{[(ln.family, ln.lane, ln.iters) for ln in lanes]} (family, lane, "
+        f"iterations), K1 {counts[0]} = host-loop steps {steps}; "
+        f"{time.perf_counter() - t0:.1f} s; {len(lanes)} oracle lanes "
+        "started in the pool")
+    pool = oracle_pool.make_pool(len(lanes))
+    return (lanes, fracs, pool, parity.submit(pool, lanes),
+            time.perf_counter()), counts[0]
+
+
+def finish_certificate(started, card):
+    """Phase 15(b), the oracle's half: |du| <= 1e-3 on every lane."""
+    lanes, fracs, pool, futures, t0 = started
+    try:
+        records = parity.collect(lanes, futures)
+    finally:
+        pool.shutdown()
+    s = parity.summary(records, fracs, time.perf_counter() - t0,
+                       len(CERT_SEEDS))
+    per = ", ".join(f"{r['family']} {r['lane']}: {r['du']:.2e} (status "
+                    f"{r['status']}, {r['tries']} tries, {r['seconds']:.1f} s)"
+                    for r in records)
+    say(f"phase 15 certificate [{card}]: max |u_card - u_oracle| "
+        f"{s.get('max_u_diff', float('nan')):.3e} over {s['n_lanes']} lanes "
+        f"(bar {parity.TOL}), {s.get('n_strict_lanes')} strict; {per}; the "
+        f"pool's wall {s.get('oracle_wall_s', 0.0):.1f} s after the card's "
+        "solves")
+    if not s["pass"] or s["n_lanes"] != len(lanes) or not lanes:
+        fail(f"certificate: {s}")
+
+
+AOT_CHILD = """
+import json, sys, time
+t0 = time.perf_counter()
+import torch
+from forces_resilient_planner_tpu_torch.ops import _build, ipm_kernel
+builds = []
+build = _build.build
+def counted(*sources):
+    builds.append(sources)
+    return build(*sources)
+_build.build = counted
+from forces_resilient_planner_tpu_torch.solver.nlp import (
+    NLPParams, StageWeights)
+from forces_resilient_planner_tpu_torch.utils import aot
+path, scen, out, device = sys.argv[1:5]
+solver = aot.load_solver(path, device=device)
+t = torch.load(scen, map_location=device)
+res = solver(t[0], NLPParams(*t[1:7], weights=StageWeights(*t[7:])))
+torch.save(tuple(t.cpu() for t in res), out)
+libs = sorted(str(p) for p in _build._prebuilt.values())
+print(json.dumps({"builds": len(builds), "launches": ipm_kernel.LAUNCHES,
+                  "seconds": time.perf_counter() - t0, "libraries": libs}))
+"""
+
+
+def check_aot(dev, build_s):
+    """Phase 15(c): the bench solver exported here, loaded and run in a
+    fresh process with no nvcc on its PATH and no CUDA_HOME on this
+    process's inputs (the bench grid of seed 1, saved), bit-equal to this
+    process's solve, having built nothing.  Returns the child's K1
+    launches and this process's."""
+    cfg = workloads.bench_config()
+    g, f = workloads.bench_seeds(1)
+    scen = batch.make_scenarios(cfg, g, f, workloads.HALVES,
+                                dtype=torch.float32, device=dev)
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        path = aot.export_batched_solver(cfg, scen.batch, torch.float32,
+                                         f"{d}/solver")
+        export_s = time.perf_counter() - t0
+        reset_counts()
+        ref = batch.solve_scenarios(scen, cfg)
+        torch.cuda.synchronize()
+        l1, steps = launch_counts()[0], ipm_lanes.STEPS
+        torch.save((scen.Z0, *scen.params[:-1], *scen.params.weights),
+                   f"{d}/scen.pt")
+        env = {k: v for k, v in os.environ.items() if k != "CUDA_HOME"}
+        env["PATH"] = os.pathsep.join(
+            p for p in env.get("PATH", "").split(os.pathsep)
+            if p and not os.path.exists(os.path.join(p, "nvcc")))
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", AOT_CHILD, str(path), f"{d}/scen.pt",
+             f"{d}/res.pt", str(dev)],
+            cwd=root, env=env, capture_output=True, text=True, timeout=300)
+        child_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            fail(f"AOT child: exit {proc.returncode}: {proc.stderr[-2000:]}")
+        rep = json.loads(proc.stdout.strip().splitlines()[-1])
+        got = torch.load(f"{d}/res.pt")
+        same = all(bit_equal(a, b.cpu()) for a, b in zip(got, ref))
+        mb = sum(os.path.getsize(os.path.join(path, n))
+                 for n in os.listdir(path)) / 1e6
+        n_libs = len(aot.read_manifest(path)["libraries"])
+    say(f"phase 15 AOT: exported {n_libs} libraries + manifest ({mb:.1f} "
+        f"MB) in {export_s:.2f} s; a fresh "
+        f"process with no nvcc on PATH and no CUDA_HOME loaded "
+        f"{len(rep['libraries'])} prebuilt libraries, built "
+        f"{rep['builds']} times, launched K1 {rep['launches']} times (this "
+        f"process {l1} = host-loop steps {steps}), bit-equal {same}; its "
+        f"wall {child_s:.1f} s (import to result {rep['seconds']:.1f} s) "
+        f"against {build_s:.1f} s more for a process that builds (phase 1)")
+    if not (same and rep["builds"] == 0 and rep["launches"] == l1 > 0
+            and len(rep["libraries"]) == len(_build.SOURCES)):
+        fail(f"AOT round trip: bit-equal {same}, {rep}")
+    return rep["launches"], l1
+
+
+def run_example(module, argv):
+    """One example's main in this process, its output captured: (its
+    return value, its printed text, launches (K1..K4b), host-loop steps,
+    seconds)."""
+    reset_counts()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        out = module.main(argv)
+    torch.cuda.synchronize()
+    return (out, buf.getvalue(), launch_counts(), ipm_lanes.STEPS,
+            time.perf_counter() - t0)
+
+
+def check_examples(dev, card):
+    """Phase 15(d): examples 1-4 and 6 at their defaults on the card (config
+    1 also with --oracle, config 6 at FLEET_EXAMPLE_ARGS).  Returns the
+    launches (K1, K2, K3) of the five runs, summed."""
+    total = np.zeros(3, int)
+    with tempfile.TemporaryDirectory() as d:
+        runs = (("config1", config1, []), ("config1 --oracle", config1,
+                                            ["--oracle"]),
+                ("config2", config2, []), ("config3", config3,
+                                           ["--out-dir", d]),
+                ("config4", config4, []),
+                ("config6", config6, FLEET_EXAMPLE_ARGS))
+        for label, module, argv in runs:
+            out, text, counts, steps, sec = run_example(module, argv)
+            l1, l2, l3 = counts[:3]
+            total += (l1, l2, l3)
+            lines = [ln for ln in text.splitlines() if ln.strip()]
+            say(f"phase 15 example {label} [{card}]: {sec:.1f} s, K1 {l1} = "
+                f"host-loop steps {steps}, K2 {l2}, K3 {l3}; "
+                + " | ".join(lines[-3:] if label.startswith("config1")
+                             else lines[-2:]))
+            ok = l1 == steps > 0 and counts[3] == counts[4] == 0
+            if label.startswith("config1"):
+                ok &= out["exit"] == 1 and out.get("oracle_err", 0) <= 1e-3
+                ok &= l2 == l3 == 0
+            elif label == "config2":
+                ok &= out["exit"] == 1 and l2 == l3 == 1
+            elif label == "config3":
+                ok &= (out["solves"] > 0 and l2 == l3 == out["solves"]
+                       and os.path.getsize(f"{d}/scene_config3.html") > 0)
+            elif label == "config4":
+                ok &= (out["exit_codes"] == 1).mean() >= 0.999
+                ok &= l2 == l3 == 0
+            else:
+                ok &= (out.collided_frac == 0.0 and l2 == l3 == out.n_ticks
+                       and "reached" in lines[-1])
+            if not ok:
+                fail(f"example {label}: launches {counts} vs {steps} steps, "
+                     f"output {text[-800:]}")
+    return tuple(int(x) for x in total)
+
+
+def run_slice6(dev, card, build_s):
+    """Phase 15: (b) the reduced certificate started first, its oracle
+    lanes solved in the pool while (a) the stress batch, (c) the shipped
+    solver and (d) the examples run; then (b)'s bar.  Returns each K1/K2/K3
+    entry's launches on these paths."""
+    t0 = time.perf_counter()
+    started, l1_cert = start_certificate(dev)
+    l1_f64, l1_f32 = check_stress(dev)
+    l1_child, l1_aot = check_aot(dev, build_s)
+    l1_ex, l2_ex, l3_ex = check_examples(dev, card)
+    finish_certificate(started, card)
+    say(f"phase 15 total {time.perf_counter() - t0:.1f} s")
+    return {
+        "ipm_iteration": {"stress f64": l1_f64, "stress f32": l1_f32,
+                          "certificate": l1_cert, "aot in process": l1_aot,
+                          "aot child": l1_child, "examples": l1_ex},
+        "tube_stage": {"examples": l2_ex},
+        "corridor": {"examples": l3_ex},
+    }
+
+
 def lane_position_check(state, params, cfg, seed):
     """K1 on a permutation of the lanes gives the permuted outputs bit for
     bit, and the 256 lanes that the tier schedule would compact (the
@@ -2154,7 +2399,7 @@ def device_phase():
     torch.cuda.set_device(dev)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    card = card_line()
+    card = parity.card_line(dev)
     kind = torch.cuda.get_device_name(0)
     say(f"phase 0 device: {kind} | nvidia-smi: {card} | "
         f"torch {torch.__version__} cuda {torch.version.cuda}")
@@ -2170,7 +2415,8 @@ def build_phase():
                  or "Compiling entry function" in ln]
         say(f"phase 1 build {source}: {built.seconds:.1f} s -> "
             f"{built.path.name}; " + " | ".join(ptxas))
-    say(f"phase 1 build: all sources in {time.perf_counter() - t0:.1f} s")
+    build_s = time.perf_counter() - t0
+    say(f"phase 1 build: all sources in {build_s:.1f} s")
     N = workloads.bench_config().model.N
     geo = []
     for dtype in (torch.float32, torch.float64):
@@ -2209,6 +2455,7 @@ def build_phase():
                        f"{g.threads} threads")
     say(f"phase 1 K4 and K5 (lqr.cu, a warp per lane) per CTA at N = {N}: "
         + "; ".join(geo) + " (registers and spills: the lqr.cu line above)")
+    return build_s
 
 
 def main() -> int:
@@ -2219,7 +2466,7 @@ def main() -> int:
     dev, card, kind = found
 
     # ---- phase 1: build ---------------------------------------------------
-    build_phase()
+    build_s = build_phase()
 
     cfg = workloads.bench_config()
 
@@ -2247,16 +2494,25 @@ def main() -> int:
     # ---- phase 14: the surfaces and scale-out ------------------------------
     run_slice5(dev, card)
 
+    # ---- phase 15: stress, certificate, shipped solver, examples ----------
+    slice6 = run_slice6(dev, card, build_s)
+
     say(f"chip_smoke total {time.perf_counter() - T0:.1f} s")
     # max_abs_err: f32 kernel vs plain from the initial state, the check
     # held elementwise (the mid-solve one is printed in phase 2)
-    print(json.dumps({"kernels": [{
+    # launches: the slice-1 main path's (phase 3); launches_phase15: the
+    # same kernel's on phase 15's paths
+    kernels = [{
         "name": "ipm_iteration", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES, "launches": launches,
         "max_abs_err": errs[torch.float32], "ms": ms_kernel,
         "plain_ms": ms_plain, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None,
-    }, *slice2, *slice3]}))
+    }, *slice2, *slice3]
+    for k in kernels:
+        if k["name"] in slice6:
+            k["launches_phase15"] = slice6[k["name"]]
+    print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

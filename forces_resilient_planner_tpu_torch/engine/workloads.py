@@ -3,11 +3,13 @@
 Copies of bench.py's scenario grid (HALVES, N_GOALS, N_FORCES, bench_seeds,
 bench_config), of __graft_entry__._small_cfg, of the JAX bench's fleet
 workload (tools/fleet_probe.py's fleet_cfg and fleet_scene, bench.py's
-fleet lanes, B, duration and replan cadence) and of the closed-loop tests'
-configuration (tests/test_closed_loop.py's CFG), so that neither the port
-nor chip_smoke.py imports those modules (their configs come from the JAX
-package).  tests/test_torch_config.py holds each copy equal to its
-original.
+fleet lanes, B, duration and replan cadence), of the closed-loop tests'
+configuration (tests/test_closed_loop.py's CFG) and of the adversarial
+solver distribution (tools/stress_oracle_classify.py's stress_params, the
+empty slab of tests/test_solver_stress.py), so that neither the port nor
+chip_smoke.py imports those modules (their configs come from the JAX
+package).  tests/test_torch_config.py and tests/test_torch_stress.py hold
+each copy equal to its original.
 """
 from __future__ import annotations
 
@@ -18,6 +20,13 @@ import torch
 
 from forces_resilient_planner_tpu_torch.config import DEFAULT_CONFIG
 from forces_resilient_planner_tpu_torch.mapping import occ_grid as og
+from forces_resilient_planner_tpu_torch.solver import ipm_lanes
+from forces_resilient_planner_tpu_torch.solver.nlp import NLPParams
+from forces_resilient_planner_tpu_torch.solver.problems import (
+    box_corridor,
+    hover_to_goal_params,
+    hover_warm_start,
+)
 
 # the bench grid: 256 goals x 16 forces x 1 box = 4096 scenarios
 HALVES = np.array([[5.0, 5.0, 2.0]])
@@ -133,3 +142,56 @@ def closed_loop_cfg():
             max_rounds=48,
         ),
     )
+
+
+# the adversarial solver distribution's start: hover at (0, 0, 1.2)
+STRESS_X0 = np.array([0.0, 0.0, 1.2, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0])
+
+
+def stack_params(problems) -> NLPParams:
+    """Single problems' NLPParams stacked along a new leading lane axis."""
+    return NLPParams(
+        *(torch.stack(f) for f in zip(*(p[:-1] for p in problems))),
+        weights=type(problems[0].weights)(
+            *(torch.stack(f) for f in zip(*(p.weights for p in problems)))),
+    )
+
+
+def stress_params(B: int, seed: int = 123, *, dtype, device):
+    """(Z0 (B, N, 17), params) of the adversarial stress distribution
+    (tools/stress_oracle_classify.py:48-79, the batch of tests/
+    test_solver_stress.py::test_stress_batch_no_false_optimals enlarged):
+    random goals, forces up to 4 m/s^2 a component, random tight and
+    shifted box corridors, each lane built at f64 on the CPU by
+    hover_to_goal_params, then cast to `dtype` on `device`."""
+    mcfg = DEFAULT_CONFIG.model
+    rng = np.random.default_rng(seed)
+    problems = []
+    for _ in range(B):
+        goal = rng.uniform([-2.5, -2.5, 0.6], [2.5, 2.5, 2.2], 3)
+        f = rng.uniform(-4, 4, 3)
+        half = rng.uniform([0.3, 0.3, 0.4], [4.0, 4.0, 2.0], 3)
+        center = 0.5 * (STRESS_X0[:3] + goal) + rng.uniform(-0.5, 0.5, 3)
+        problems.append(hover_to_goal_params(
+            STRESS_X0, goal, mcfg, DEFAULT_CONFIG.weights, f_ext=tuple(f),
+            corridor_center=center, corridor_half=tuple(half), device="cpu"))
+    params = stack_params(problems)
+    Z0 = hover_warm_start(torch.as_tensor(STRESS_X0), mcfg)[None]
+    return (Z0.expand(B, -1, -1).to(dtype=dtype, device=device).contiguous(),
+            ipm_lanes._map_params(lambda a: a.to(dtype=dtype, device=device),
+                                  params))
+
+
+def empty_slab_params(*, dtype, device) -> NLPParams:
+    """The exit-code taxonomy's infeasible problem (tests/
+    test_solver_stress.py:207-237): hover to (1, 0, 1.2) in a 5 x 5 x 2 m
+    box whose x rows read x <= 0.5 and x >= 0.6, an empty slab."""
+    mcfg = DEFAULT_CONFIG.model
+    goal = np.array([1.0, 0.0, 1.2])
+    p = hover_to_goal_params(STRESS_X0, goal, mcfg, DEFAULT_CONFIG.weights,
+                             dtype=dtype, device=device)
+    A, b = box_corridor(np.array([0.0, 0.0, 1.2]), np.array([5, 5, 2.0]),
+                        mcfg.N, dtype=dtype, device=device)
+    b[:, 0] = 0.5
+    b[:, 1] = -0.6
+    return p._replace(corridor_A=A, corridor_b=b)

@@ -7,7 +7,9 @@ interface, loaded with ctypes.  A library is built
 at first use into ops/csrc/build/ (git-ignored) and rebuilt whenever its
 source, a header or the flags change (the file name carries their hash).
 `build()` starts one nvcc per source, all at once.  Without nvcc the build
-raises RuntimeError: there is no fallback.
+raises RuntimeError: there is no fallback.  `register_prebuilt` hands
+`load` a library built elsewhere (utils/aot.py's shipped solver), which it
+then loads without building anything.
 """
 from __future__ import annotations
 
@@ -65,7 +67,9 @@ def _flags(source: str) -> tuple[str, ...]:
     return NVCC_FLAGS + SOURCE_FLAGS.get(source, ())
 
 
-def _paths(source: str):
+def source_hash(source: str) -> str:
+    """The hash of a source, every header and the flags: the part of its
+    library's file name that changes whenever any of them does."""
     src = CSRC / source
     if source not in SOURCES or not src.is_file():
         raise ValueError(f"unknown kernel source {source!r} (known: {SOURCES})")
@@ -73,8 +77,12 @@ def _paths(source: str):
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.name.encode() + header.read_bytes())
     h.update(" ".join(_flags(source)).encode())
-    stem = f"{src.stem}_{h.hexdigest()[:16]}"
-    return src, BUILD_DIR / f"{stem}.so", BUILD_DIR / f"{stem}.log"
+    return h.hexdigest()[:16]
+
+
+def _paths(source: str):
+    stem = f"{Path(source).stem}_{source_hash(source)}"
+    return CSRC / source, BUILD_DIR / f"{stem}.so", BUILD_DIR / f"{stem}.log"
 
 
 def build(*sources: str) -> dict[str, Built]:
@@ -114,13 +122,30 @@ def build(*sources: str) -> dict[str, Built]:
 
 
 _libs: dict[str, ctypes.CDLL] = {}
+_prebuilt: dict[str, Path] = {}
+
+
+def register_prebuilt(source: str, so_path) -> None:
+    """Make `load(source)` use the library at so_path and build nothing.
+    Raises if this process already loaded another library of `source`."""
+    if source not in SOURCES:
+        raise ValueError(f"unknown kernel source {source!r} (known: {SOURCES})")
+    so_path = Path(so_path).resolve()
+    if not so_path.is_file():
+        raise FileNotFoundError(f"no prebuilt library at {so_path}")
+    if source in _libs and _prebuilt.get(source) != so_path:
+        raise RuntimeError(
+            f"{source}: this process already loaded another library of it")
+    _prebuilt[source] = so_path
 
 
 def load(source: str, bind: Callable[[ctypes.CDLL], None]) -> ctypes.CDLL:
-    """The library of `source`, built at first use in this process and
-    bound by `bind` (which sets each entry point's argtypes/restype)."""
+    """The library of `source`, bound by `bind` (which sets each entry
+    point's argtypes/restype): the registered prebuilt one, else built at
+    first use in this process."""
     if source not in _libs:
-        lib = ctypes.CDLL(str(build(source)[source].path))
+        path = _prebuilt.get(source) or build(source)[source].path
+        lib = ctypes.CDLL(str(path))
         bind(lib)
         _libs[source] = lib
     return _libs[source]

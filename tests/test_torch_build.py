@@ -18,7 +18,7 @@ def _run(code_or_args, timeout=300):
                           timeout=timeout)
 
 
-@pytest.mark.parametrize("module", [
+PORT_MODULES = [
     "forces_resilient_planner_tpu_torch.config",
     "forces_resilient_planner_tpu_torch.engine.batch",
     "forces_resilient_planner_tpu_torch.engine.reference",
@@ -65,16 +65,40 @@ def _run(code_or_args, timeout=300):
     "forces_resilient_planner_tpu_torch.ops._build",
     "forces_resilient_planner_tpu_torch.solver.ipm",
     "forces_resilient_planner_tpu_torch.utils.lanes",
-])
-def test_port_imports_no_jax(module):
+    "forces_resilient_planner_tpu_torch.utils.aot",
+    "forces_resilient_planner_tpu_torch.oracle.pool",
+    "forces_resilient_planner_tpu_torch.tools.parity_certificate",
+    "forces_resilient_planner_tpu_torch.tools.stress_oracle",
+    "forces_resilient_planner_tpu_torch.examples.config1_hover_to_goal",
+    "forces_resilient_planner_tpu_torch.examples.config2_constant_force",
+    "forces_resilient_planner_tpu_torch.examples.config3_obstacle_scene",
+    "forces_resilient_planner_tpu_torch.examples.config4_batched",
+    "forces_resilient_planner_tpu_torch.examples.config6_fleet",
+]
+
+
+@pytest.fixture(scope="module")
+def imports():
+    """Each module imported in a fresh interpreter of its own, 8 at a time:
+    {module: the finished process}."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def check(module):
+        return _run(
+            f"import sys, {module}; "
+            "bad = sorted(m for m in sys.modules if m == 'jax' "
+            "or m.startswith('jax.') or m == 'forces_resilient_planner_tpu' "
+            "or m.startswith('forces_resilient_planner_tpu.')); "
+            "assert not bad, bad"
+        )
+    with ThreadPoolExecutor(8) as pool:
+        return dict(zip(PORT_MODULES, pool.map(check, PORT_MODULES)))
+
+
+@pytest.mark.parametrize("module", PORT_MODULES)
+def test_port_imports_no_jax(module, imports):
     """Neither jax nor any module of the JAX package is loaded."""
-    proc = _run(
-        f"import sys, {module}; "
-        "bad = sorted(m for m in sys.modules if m == 'jax' "
-        "or m.startswith('jax.') or m == 'forces_resilient_planner_tpu' "
-        "or m.startswith('forces_resilient_planner_tpu.')); "
-        "assert not bad, bad"
-    )
+    proc = imports[module]
     assert proc.returncode == 0, proc.stderr
 
 

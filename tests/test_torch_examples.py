@@ -1,19 +1,43 @@
-"""The ported BASELINE config 5 example (examples/config5_monte_carlo.py of
-the port) on the CPU at a small size: a sweep interrupted after 2
-checkpointed chunks and resumed to 3 in a fresh call gives every chunk's
-exit codes and iterations bit-equal to one uninterrupted run, with the
-JAX example's per-chunk seeds and summary fields.  The full 25 x 4096
-sweep and the --mesh path over 2 and 4 CPU ranks are marked slow; the
-full sweep runs on the card in chip_smoke.py."""
+"""The ported BASELINE examples of the port (its examples/) on the CPU.
+
+Config 5 at a small size: a sweep interrupted after 2 checkpointed chunks
+and resumed to 3 in a fresh call gives every chunk's exit codes and
+iterations bit-equal to one uninterrupted run, with the JAX example's
+per-chunk seeds and summary fields.  The full 25 x 4096 sweep and the
+--mesh path over 2 and 4 CPU ranks are marked slow; the full sweep runs on
+the card in chip_smoke.py.
+
+Configs 1, 2 and 4: each example's printed exit code and outcome against
+the JAX calls its JAX example makes, on the same problem at f64 (config 4,
+at its f32, on a 4 x 2 grid: the JAX example has no size switch): exit
+codes and iterations identical, the controls within 1e-6 (config 4: 1e-3,
+the control bar at f32), config 2's tightening margins and tube radii
+within 1e-9.  Configs 3 and 6 (the closed loops) are in
+tests/test_torch_examples_loop.py.  Config 1's --oracle is marked slow
+(one SLSQP solve; chip_smoke.py runs it on the card)."""
 import importlib.util
 import json
+import re
 from pathlib import Path
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from _torch_threads import one_torch_thread  # noqa: F401
-from forces_resilient_planner_tpu_torch.examples import config5_monte_carlo as ex
+from forces_resilient_planner_tpu.config import DEFAULT_CONFIG as C
+from forces_resilient_planner_tpu.engine import batch as jbm
+from forces_resilient_planner_tpu.engine.pipeline import nmpc_step as jstep
+from forces_resilient_planner_tpu.solver import ipm as jipm
+from forces_resilient_planner_tpu.solver import problems as jp
+from forces_resilient_planner_tpu_torch.examples import (
+    config1_hover_to_goal as ex1,
+    config2_constant_force as ex2,
+    config4_batched as ex4,
+    config5_monte_carlo as ex,
+)
 from forces_resilient_planner_tpu_torch.utils.checkpoint import (
     SweepCheckpointer,
 )
@@ -91,3 +115,77 @@ def test_full_sweep_resumed_after_8_chunks(tmp_path):
     s = ex.main(["--device", "cpu", "--ckpt-dir", str(tmp_path)])
     assert s["resumed_chunks"] == 8 and s["n_scenarios"] == 102_400
     assert s["resilience_rate"] >= 0.999
+
+
+X0 = np.zeros(9)
+X0[2] = 1.2
+
+
+def _printed(capsys, pattern):
+    """The ints of the first printed line matching `pattern`."""
+    out = capsys.readouterr().out
+    m = re.search(pattern, out)
+    assert m, out
+    return tuple(int(g) for g in m.groups())
+
+
+def test_config1_matches_the_jax_example_s_solve(capsys):
+    got = ex1.main(["--device", "cpu"])
+    assert _printed(capsys, r"exit=(-?\d+) iters=(\d+)") == (
+        got["exit"], got["iters"])
+    p = jp.hover_to_goal_params(X0, ex1.GOAL, C.model, C.weights)
+    ref = jax.jit(lambda z, p: jipm.solve(z, p, C.model, C.solver))(
+        jp.hover_warm_start(jnp.asarray(X0), C.model), p)
+    assert (got["exit"], got["iters"]) == (int(ref.exit_code),
+                                           int(ref.iters)) == (1, 13)
+    np.testing.assert_allclose(got["Z"], np.asarray(ref.Z), rtol=0,
+                               atol=1e-6)
+
+
+@pytest.mark.slow
+def test_config1_oracle_parity():
+    got = ex1.main(["--device", "cpu", "--oracle"])
+    assert got["exit"] == 1 and got["oracle_err"] < 1e-3
+
+
+def test_config2_matches_the_jax_example_s_step(capsys):
+    got = ex2.main(["--device", "cpu", "--dtype", "float64"])
+    assert _printed(capsys, r"exit=(-?\d+) iters=(\d+)") == (
+        got["exit"], got["iters"])
+    f64 = jnp.float64
+    Z = np.asarray(jp.hover_warm_start(jnp.asarray(X0, f64), C.model))
+    K = ex2.K
+    s = np.arange(K) * C.model.dt
+    path = np.stack([1.5 * s, np.zeros(K), np.full(K, 1.2)], -1)
+    res = jax.jit(lambda *a: jstep(*a, cfg=C))(
+        jnp.asarray(np.concatenate([Z, Z[-1:]]), f64), jnp.asarray(path, f64),
+        jnp.asarray(K), jnp.asarray(0.0, f64), jnp.asarray(X0, f64),
+        jnp.asarray(ex2.WIND, f64), jnp.asarray(path[-1], f64),
+        jnp.zeros((64, 3), f64), jnp.zeros(64, bool), jnp.asarray(False))
+    assert (got["exit"], got["iters"]) == (int(res.exit_code),
+                                           int(res.iters))
+    tighten = np.asarray(res.corridor_b - res.corridor_b_tight)
+    rows = np.linalg.norm(np.asarray(res.corridor_A), axis=-1) > 1e-9
+    np.testing.assert_allclose(got["tighten"], tighten[rows], rtol=0,
+                               atol=1e-9)
+    E = np.asarray(res.tube_E)
+    np.testing.assert_allclose(
+        got["radii"], (np.linalg.norm(E[0], 2), np.linalg.norm(E[-1], 2)),
+        rtol=0, atol=1e-9)
+    assert got["radii"][1] > got["radii"][0]
+
+
+def test_config4_matches_the_jax_example_s_grid(capsys):
+    got = ex4.main(["--device", "cpu", "--goals", "4", "--forces", "2"])
+    assert "batch: 8" in capsys.readouterr().out
+    rng = np.random.default_rng(1)
+    scen = jbm.make_scenarios(
+        C, rng.uniform([-3, -3, 1.0], [3, 3, 1.6], (4, 3)),
+        rng.uniform(-1.5, 1.5, (2, 3)), ex4.HALVES, dtype=jnp.float32)
+    ref = jbm.solve_scenarios(scen, C)
+    np.testing.assert_array_equal(got["exit_codes"],
+                                  np.asarray(ref.exit_code))
+    assert (got["exit_codes"] == 1).all()
+    np.testing.assert_allclose(got["Z"][..., 0:4],
+                               np.asarray(ref.Z[..., 0:4], np.float64),
+                               rtol=0, atol=1e-3)
