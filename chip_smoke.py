@@ -194,8 +194,10 @@ printed):
      in a pool of 4 CPU processes (started first, collected last): max
      |u_card - u_oracle| <= 1e-3 on every lane. (c) the shipped solver:
      the bench configuration exported for B = 4096 f32 here, loaded and
-     run in a fresh process whose PATH has no nvcc and that has no
-     CUDA_HOME: bit-equal to this process's solve, no build in the child,
+     run in a fresh process that cannot reach nvcc (not on its PATH, no
+     CUDA_HOME, the port's lookup made to raise) and whose build
+     directory is empty: bit-equal to this process's solve, no build in
+     the child,
      its K1 launches equal to this process's; its wall against phase 1's
      build seconds. (d) the examples at their defaults (config 1 also with
      --oracle, config 6 at FLEET_EXAMPLE_ARGS): each returns and prints its
@@ -2153,7 +2155,8 @@ def finish_certificate(started, card):
 
 
 AOT_CHILD = """
-import json, sys, time
+import json, os, sys, tempfile, time
+from pathlib import Path
 t0 = time.perf_counter()
 import torch
 from forces_resilient_planner_tpu_torch.ops import _build, ipm_kernel
@@ -2162,7 +2165,13 @@ build = _build.build
 def counted(*sources):
     builds.append(sources)
     return build(*sources)
+def no_nvcc():
+    raise RuntimeError("the shipped solver looked for nvcc")
 _build.build = counted
+_build.find_nvcc = no_nvcc
+_build.NVCC_FALLBACK = os.devnull + "/nvcc"
+# an empty build directory: no library the checkout built can be loaded
+_build.BUILD_DIR = Path(tempfile.mkdtemp())
 from forces_resilient_planner_tpu_torch.solver.nlp import (
     NLPParams, StageWeights)
 from forces_resilient_planner_tpu_torch.utils import aot
@@ -2173,15 +2182,17 @@ res = solver(t[0], NLPParams(*t[1:7], weights=StageWeights(*t[7:])))
 torch.save(tuple(t.cpu() for t in res), out)
 libs = sorted(str(p) for p in _build._prebuilt.values())
 print(json.dumps({"builds": len(builds), "launches": ipm_kernel.LAUNCHES,
-                  "seconds": time.perf_counter() - t0, "libraries": libs}))
+                  "seconds": time.perf_counter() - t0, "libraries": libs,
+                  "build_dir_files": len(os.listdir(_build.BUILD_DIR))}))
 """
 
 
 def check_aot(dev, build_s):
     """Phase 15(c): the bench solver exported here, loaded and run in a
-    fresh process with no nvcc on its PATH and no CUDA_HOME on this
-    process's inputs (the bench grid of seed 1, saved), bit-equal to this
-    process's solve, having built nothing.  Returns the child's K1
+    fresh process without nvcc (none on its PATH, no CUDA_HOME, the
+    port's nvcc lookup made to raise) and with an empty build directory,
+    on this process's inputs (the bench grid of seed 1, saved), bit-equal
+    to this process's solve, having built nothing.  Returns the child's K1
     launches and this process's."""
     cfg = workloads.bench_config()
     g, f = workloads.bench_seeds(1)
@@ -2219,13 +2230,16 @@ def check_aot(dev, build_s):
         n_libs = len(aot.read_manifest(path)["libraries"])
     say(f"phase 15 AOT: exported {n_libs} libraries + manifest ({mb:.1f} "
         f"MB) in {export_s:.2f} s; a fresh "
-        f"process with no nvcc on PATH and no CUDA_HOME loaded "
+        f"process without nvcc (not on PATH, no CUDA_HOME, the lookup "
+        f"raising) and an empty build directory loaded "
         f"{len(rep['libraries'])} prebuilt libraries, built "
-        f"{rep['builds']} times, launched K1 {rep['launches']} times (this "
+        f"{rep['builds']} times ({rep['build_dir_files']} files in its "
+        f"build directory), launched K1 {rep['launches']} times (this "
         f"process {l1} = host-loop steps {steps}), bit-equal {same}; its "
         f"wall {child_s:.1f} s (import to result {rep['seconds']:.1f} s) "
         f"against {build_s:.1f} s more for a process that builds (phase 1)")
-    if not (same and rep["builds"] == 0 and rep["launches"] == l1 > 0
+    if not (same and rep["builds"] == 0 and rep["build_dir_files"] == 0
+            and rep["launches"] == l1 > 0
             and len(rep["libraries"]) == len(_build.SOURCES)):
         fail(f"AOT round trip: bit-equal {same}, {rep}")
     return rep["launches"], l1

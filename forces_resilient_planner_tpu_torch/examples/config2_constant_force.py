@@ -4,10 +4,11 @@ constraints, on the port.
 Runs the full pipeline step (references, tubes, corridors, tightening,
 solve: engine/pipeline.py::nmpc_step, B = 1 of the batched step; on the
 card the tube, corridor and IPM kernels) under a constant disturb-manager
-style wind, and shows how much the corridor rows tightened.
+style wind, and shows how much the corridor rows tightened.  f32 on the
+card, as the JAX example; f64 on the CPU.
 
 Run: python -m forces_resilient_planner_tpu_torch.examples.config2_constant_force
-     [--device cpu] [--dtype float64]
+     [--device cpu]
 """
 from __future__ import annotations
 
@@ -29,10 +30,9 @@ K = 128                      # path samples
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--dtype", choices=("float32", "float64"),
-                    default="float32")
     args = ap.parse_args(argv)
-    device, dtype = torch.device(args.device), getattr(torch, args.dtype)
+    device = torch.device(args.device)
+    dtype = torch.float64 if device.type == "cpu" else torch.float32
 
     def t(a, dt=dtype):
         return torch.as_tensor(np.asarray(a), dtype=dt, device=device)

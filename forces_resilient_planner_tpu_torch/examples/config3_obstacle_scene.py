@@ -9,7 +9,7 @@ IPM kernels).  f32 on the card, f64 on the CPU (the JAX example runs f64
 on the CPU: its loop is host-paced).
 
 Run: python -m forces_resilient_planner_tpu_torch.examples.config3_obstacle_scene
-     [--device cpu] [--duration 7.0] [--out-dir .]
+     [--device cpu] [--out-dir .]
 """
 from __future__ import annotations
 
@@ -31,6 +31,7 @@ from forces_resilient_planner_tpu_torch.utils.scene import (
 )
 
 GOAL = [3.5, 0.0]
+DURATION = 7.0      # seconds flown
 
 
 def fence():
@@ -49,7 +50,6 @@ def wind(t):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--duration", type=float, default=7.0)
     ap.add_argument("--out-dir", default=".")
     args = ap.parse_args(argv)
     device = torch.device(args.device)
@@ -62,7 +62,7 @@ def main(argv=None):
     planner.on_odometry(x0)
     planner.set_occupied(fence())
 
-    trace = run_closed_loop(planner, sim, GOAL, duration=args.duration,
+    trace = run_closed_loop(planner, sim, GOAL, duration=DURATION,
                             force_schedule=wind, record_plans=True)
     final = trace["pos"][-1]
     print("final position:", np.round(final, 3),

@@ -6,7 +6,7 @@ Every monotone IPM iteration of the grid is one launch of the IPM kernel
 kernels' build at first use (ops/_build.py) and the CUDA context.
 
 Run: python -m forces_resilient_planner_tpu_torch.examples.config4_batched
-     [--device cpu] [--goals 256] [--forces 16]
+     [--device cpu]
 """
 from __future__ import annotations
 
@@ -20,6 +20,7 @@ from forces_resilient_planner_tpu_torch.config import DEFAULT_CONFIG as C
 from forces_resilient_planner_tpu_torch.engine import batch as bm
 
 HALVES = np.array([[5.0, 5.0, 2.0]])
+N_GOALS, N_FORCES = 256, 16
 
 
 def _sync(device):
@@ -30,15 +31,13 @@ def _sync(device):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--goals", type=int, default=256)
-    ap.add_argument("--forces", type=int, default=16)
     args = ap.parse_args(argv)
     device = torch.device(args.device)
     print("device:", torch.cuda.get_device_name(device)
           if device.type == "cuda" else device)
     rng = np.random.default_rng(0)
-    goals = rng.uniform([-3, -3, 1.0], [3, 3, 1.6], (args.goals, 3))
-    forces = rng.uniform(-1.5, 1.5, (args.forces, 3))
+    goals = rng.uniform([-3, -3, 1.0], [3, 3, 1.6], (N_GOALS, 3))
+    forces = rng.uniform(-1.5, 1.5, (N_FORCES, 3))
     scen = bm.make_scenarios(C, goals, forces, HALVES, dtype=torch.float32,
                              device=device)
     print("batch:", scen.batch)
@@ -50,8 +49,8 @@ def main(argv=None):
 
     rng2 = np.random.default_rng(1)
     scen2 = bm.make_scenarios(
-        C, rng2.uniform([-3, -3, 1.0], [3, 3, 1.6], (args.goals, 3)),
-        rng2.uniform(-1.5, 1.5, (args.forces, 3)), HALVES,
+        C, rng2.uniform([-3, -3, 1.0], [3, 3, 1.6], (N_GOALS, 3)),
+        rng2.uniform(-1.5, 1.5, (N_FORCES, 3)), HALVES,
         dtype=torch.float32, device=device)
     _sync(device)
     t0 = time.perf_counter()

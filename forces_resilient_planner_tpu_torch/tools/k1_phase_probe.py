@@ -21,6 +21,7 @@ import torch
 from forces_resilient_planner_tpu_torch.engine import workloads
 from forces_resilient_planner_tpu_torch.ops import _build, ipm_kernel
 from forces_resilient_planner_tpu_torch.solver import ipm_lanes
+from forces_resilient_planner_tpu_torch.tools.parity_certificate import card_line
 
 PHASES = ("copy in", "dynamics", "residuals, errors", "RHS",
           "stage QP blocks", "Riccati factor", "backsolve",
@@ -51,7 +52,7 @@ def main() -> int:
         return 1
     import chip_smoke
 
-    card = chip_smoke.card_line()
+    card = card_line("cuda")
     lib = build_clocked()
     cfg = workloads.bench_config()
     state, params = chip_smoke.bench_lanes(cfg, 2, torch.float32, "cuda")

@@ -23,6 +23,7 @@ import torch
 
 from forces_resilient_planner_tpu_torch.engine import workloads
 from forces_resilient_planner_tpu_torch.ops import _build, lqr_kernel
+from forces_resilient_planner_tpu_torch.tools.parity_certificate import card_line
 
 # csrc/lqr.cu's K4_CLOCK indices: the factors' (K5a has no prologue; its
 # phase 1 is the first copies and their wait) and the backsolves'
@@ -68,7 +69,7 @@ def main() -> int:
         return 1
     import chip_smoke
 
-    card = chip_smoke.card_line()
+    card = card_line("cuda")
     lib = build_clocked()
     cfg_pc = chip_smoke.with_pc(workloads.bench_config())
     state, params = chip_smoke.bench_lanes(cfg_pc, 1, torch.float32, "cuda")

@@ -34,7 +34,6 @@ and power limit); PARITY_TPU.json is the TPU record and is not touched.
 
     python -m forces_resilient_planner_tpu_torch.tools.parity_certificate
         [--device cuda] [--out PARITY_H100.json] [--workers N]
-        [--box-seeds 1000 1001 1002] [--no-pipeline]
 """
 from __future__ import annotations
 
@@ -327,23 +326,18 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--out", default=str(ROOT / "PARITY_H100.json"))
     ap.add_argument("--workers", type=int, default=None)
-    ap.add_argument("--box-seeds", type=int, nargs="*",
-                    default=list(BOX_SEEDS))
-    ap.add_argument("--box-lanes", type=int, default=BOX_LANES_PER_SET)
-    ap.add_argument("--fence-lanes", type=int, default=FENCE_LANES)
-    ap.add_argument("--no-pipeline", action="store_true")
     args = ap.parse_args(argv)
     dev = torch.device(args.device)
     card = card_line(dev)
     t0 = time.perf_counter()
     lanes, solved_fracs = [], {}
-    for seed in args.box_seeds:
+    for seed in BOX_SEEDS:
         key = f"box{seed}"
-        got, solved_fracs[key] = box_lanes(seed, args.box_lanes, dev)
+        got, solved_fracs[key] = box_lanes(seed, BOX_LANES_PER_SET, dev)
         lanes += got
         print(f"[card] box seed {seed}: solved {solved_fracs[key]:.6f}, "
               f"lanes {[ln.lane for ln in got]}", flush=True)
-    got, solved_fracs["fence"] = fence_lanes(args.fence_lanes, dev)
+    got, solved_fracs["fence"] = fence_lanes(FENCE_LANES, dev)
     lanes += got
     print(f"[card] fence B={FENCE_B}: solved {solved_fracs['fence']:.6f}, "
           f"lanes {[ln.lane for ln in got]} "
@@ -351,9 +345,8 @@ def main(argv=None) -> int:
     t1 = time.perf_counter()
     with oracle_pool.make_pool(args.workers) as pool:
         futures = submit(pool, lanes)
-        pipe = None if args.no_pipeline else pipeline_family(dev)
-        if pipe is not None:
-            print(f"[pipeline] {json.dumps(pipe)}", flush=True)
+        pipe = pipeline_family(dev)
+        print(f"[pipeline] {json.dumps(pipe)}", flush=True)
         records = collect(lanes, futures)
     for r in records:
         print(f"[oracle] {r['family']} lane {r['lane']}: max|du| "
@@ -361,16 +354,14 @@ def main(argv=None) -> int:
               f"{r['feas']:.1e} stat {r['stat']:.1e} ({r['seconds']:.1f} s)",
               flush=True)
     result = summary(records, solved_fracs, time.perf_counter() - t1,
-                     len(args.box_seeds))
-    if pipe is not None:
-        result["pipeline"] = pipe
+                     len(BOX_SEEDS))
+    result["pipeline"] = pipe
     result.update(card=card, device=str(dev), torch=torch.__version__,
                   cuda=torch.version.cuda, wall_s=time.perf_counter() - t0)
     Path(args.out).write_text(json.dumps(result, indent=1))
     print(json.dumps({k: v for k, v in result.items() if k != "lanes"}),
           flush=True)
-    ok = result["pass"] and (pipe is None or pipe["pass"])
-    return 0 if ok else 1
+    return 0 if result["pass"] and pipe["pass"] else 1
 
 
 if __name__ == "__main__":

@@ -10,7 +10,7 @@ capability half on the card: of the stress lanes the solver fails, how
 many were solvable?
 
 Method: the stress batch (engine/workloads.py::stress_params, seed 123,
-B = 512 by default: random tight and shifted corridors, forces up to
+B = 512: random tight and shifted corridors, forces up to
 4 m/s^2, random goals) is solved on the card at f32 and at f64 through the
 IPM kernel (K1) with the bench's tier schedule; every lane that failed at
 either precision is re-solved by the independent SLSQP oracle with its
@@ -22,19 +22,26 @@ the infeasibility certificate) lane the oracle proves feasible is a
 misclassified certificate.  An exit 1 whose trajectory leaves its corridor
 by more than the slack is a false optimal.
 
-Each classified lane is appended to the .partial.jsonl beside --out, so an
-interrupted run resumes (the stress set is deterministic per (B, seed)).
+Each classified lane is appended to a resume file under _arch/ (git-
+ignored), named after --out, so an interrupted run resumes.  Each record
+carries a key: the hash of its lane's f64 problem, its random starts' seed,
+the configuration and the oracle's code (oracle/cpu_oracle.py and
+oracle/pool.py, where the trials, ftol and tolerances of the rule live).
+A record whose key is not its lane's makes the run stop: the problem or
+the oracle changed since it was written, and the file must be deleted.
 Writes STRESS_ORACLE_H100.json: STRESS_ORACLE.json's fields for the f64
 solve, the same for f32, the f32-versus-f64 exit-code confusion matrix,
-the false optimals at each precision, and the card's name and power limit.
+the false optimals at each precision, the card's name and power limit,
+and, when lanes were resumed, the resume file they came from (their own
+seconds are in oracle_lane_s; oracle_wall_s is this run's).
 
     python -m forces_resilient_planner_tpu_torch.tools.stress_oracle
-        [--B 512] [--device cuda] [--out STRESS_ORACLE_H100.json]
-        [--workers N]
+        [--device cuda] [--out STRESS_ORACLE_H100.json] [--workers N]
 """
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import sys
 import time
@@ -45,6 +52,7 @@ import numpy as np
 import torch
 
 from forces_resilient_planner_tpu_torch.engine import workloads
+from forces_resilient_planner_tpu_torch.oracle import cpu_oracle
 from forces_resilient_planner_tpu_torch.oracle import pool as oracle_pool
 from forces_resilient_planner_tpu_torch.solver import ipm_lanes
 from forces_resilient_planner_tpu_torch.tools.parity_certificate import (
@@ -52,6 +60,7 @@ from forces_resilient_planner_tpu_torch.tools.parity_certificate import (
 )
 
 ROOT = Path(__file__).resolve().parents[2]
+RESUME_DIR = ROOT / "_arch"
 STRESS_B, STRESS_SEED = 512, 123
 EXIT_CODES = (1, 0, -6, -7)
 
@@ -91,40 +100,73 @@ def confusion(ec64: np.ndarray, ec32: np.ndarray) -> dict:
     return out
 
 
-def read_partial(path: Path) -> dict:
+def oracle_fingerprint(cfg) -> bytes:
+    """What a verdict depends on besides its lane's problem: the oracle's
+    code and the configuration."""
+    h = hashlib.sha256()
+    for mod in (cpu_oracle, oracle_pool):
+        h.update(Path(mod.__file__).read_bytes())
+    h.update(repr((cfg.model, cfg.solver)).encode())
+    return h.digest()
+
+
+def lane_key(params, seed: int, fingerprint: bytes) -> str:
+    """The key of one lane's verdict: its f64 problem, its random starts'
+    seed and the oracle's fingerprint."""
+    h = hashlib.sha256(fingerprint)
+    for t in (*params[:-1], *params.weights):
+        h.update(t.to("cpu", torch.float64).contiguous().numpy().tobytes())
+    h.update(str(seed).encode())
+    return h.hexdigest()[:16]
+
+
+def read_partial(path: Path, keys: dict) -> dict:
+    """The verdicts of the resume file for the lanes of `keys` ({lane:
+    key}); raises when one was written for another problem or oracle."""
     done = {}
     if path.exists():
         for line in path.read_text().splitlines():
             try:
                 rec = json.loads(line)
-                done[rec["lane"]] = rec
-            except (ValueError, KeyError):
-                pass
+                lane = rec["lane"]
+            except (ValueError, KeyError, TypeError):
+                continue
+            if lane not in keys:
+                continue
+            if rec.get("key") != keys[lane]:
+                raise RuntimeError(
+                    f"{path}: lane {lane}'s verdict has key "
+                    f"{rec.get('key')}, the lane's problem and oracle now "
+                    f"give {keys[lane]}: delete the file to classify again")
+            done[lane] = rec
     return done
 
 
 def classify_lanes(lanes, params64, partial: Path, workers=None):
-    """({lane: {"lane", "feasible", "oracle", "seconds"}} for every lane,
-    the number of lanes read from the partial file): a lane comes from the
-    partial file where it has it, else from the oracle pool (each result
-    appended to the partial file as it lands)."""
+    """({lane: {"lane", "key", "feasible", "oracle", "seconds"}} for every
+    lane, the number of lanes read from the resume file): a lane comes
+    from the resume file where it has it, else from the oracle pool (each
+    result appended to the file as it lands)."""
     cfg = workloads.bench_config()
-    done = read_partial(partial)
+    fp = oracle_fingerprint(cfg)
+    lane_params = {ln: ipm_lanes._map_params(lambda a, i=ln: a[i], params64)
+                   for ln in lanes}
+    keys = {ln: lane_key(lane_params[ln], 999_000 + ln, fp) for ln in lanes}
+    done = read_partial(partial, keys)
     todo = [ln for ln in lanes if ln not in done]
     if done:
-        print(f"[resume] {len(lanes) - len(todo)} lanes already classified",
-              flush=True)
+        print(f"[resume] {len(lanes) - len(todo)} lanes already classified "
+              f"in {partial}", flush=True)
     if todo:
+        partial.parent.mkdir(parents=True, exist_ok=True)
         with oracle_pool.make_pool(workers) as pool:
             futures = {
-                pool.submit(oracle_pool.classify,
-                            ipm_lanes._map_params(lambda a, i=ln: a[i],
-                                                  params64),
-                            cfg.model, cfg.solver, 999_000 + ln): ln
+                pool.submit(oracle_pool.classify, lane_params[ln], cfg.model,
+                            cfg.solver, 999_000 + ln): ln
                 for ln in todo}
             for j, fut in enumerate(as_completed(futures)):
                 ln = futures[fut]
-                rec = dict(lane=ln, **fut.result())
+                rec = dict(lane=ln, key=keys[ln], **fut.result())
                 done[ln] = rec
                 with partial.open("a") as f:
                     f.write(json.dumps(rec) + "\n")
@@ -158,7 +200,6 @@ def precision_summary(ec: np.ndarray, verdicts: dict, false_opt) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--B", type=int, default=STRESS_B)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--out", default=str(ROOT / "STRESS_ORACLE_H100.json"))
     ap.add_argument("--workers", type=int, default=None)
@@ -169,33 +210,37 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     ec, fo, iters = {}, {}, {}
     for name, dtype in (("f64", torch.float64), ("f32", torch.float32)):
-        res, params = solve_stress(args.B, dtype, dev)
+        res, params = solve_stress(STRESS_B, dtype, dev)
         ec[name] = res.exit_code.cpu().numpy()
         iters[name] = res.iters.cpu().numpy()
         fo[name] = false_optimals(res, params, slack)
         if not bool(torch.isfinite(res.Z).all()):
             raise SystemExit(f"non-finite Z at {name}")
-        print(f"[stress] {name} B={args.B}: solved "
+        print(f"[stress] {name} B={STRESS_B}: solved "
               f"{(ec[name] == 1).mean():.4f}, exit families "
               f"{families(ec[name])}, false optimals {fo[name]}", flush=True)
     solve_s = time.perf_counter() - t0
     failed = sorted(set(np.flatnonzero(ec["f64"] != 1).tolist())
                     | set(np.flatnonzero(ec["f32"] != 1).tolist()))
-    _, params64 = workloads.stress_params(args.B, STRESS_SEED,
+    _, params64 = workloads.stress_params(STRESS_B, STRESS_SEED,
                                           dtype=torch.float64, device="cpu")
     out = Path(args.out)
     t1 = time.perf_counter()
-    verdicts, resumed = classify_lanes(
-        failed, params64, out.with_suffix(".partial.jsonl"), args.workers)
+    partial = RESUME_DIR / f"{out.stem}.partial.jsonl"
+    verdicts, resumed = classify_lanes(failed, params64, partial,
+                                       args.workers)
     oracle_s = time.perf_counter() - t1
     result = {
-        "B": args.B,
+        "B": STRESS_B,
         **precision_summary(ec["f64"], verdicts, fo["f64"]),
         "f32": precision_summary(ec["f32"], verdicts, fo["f32"]),
         "confusion_f64_vs_f32": confusion(ec["f64"], ec["f32"]),
         "iters_equal_f32_f64": float((iters["f64"] == iters["f32"]).mean()),
         "n_oracle_lanes": len(failed),
         "n_oracle_lanes_resumed": resumed,
+        "resumed_from": (str(partial.relative_to(ROOT))
+                         if partial.is_relative_to(ROOT) else str(partial))
+        if resumed else None,
         "oracle_lane_s": sum(v["seconds"] for v in verdicts.values()),
         "card": card, "device": str(dev), "torch": torch.__version__,
         "cuda": torch.version.cuda,

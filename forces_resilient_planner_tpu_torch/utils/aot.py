@@ -19,17 +19,20 @@ and never calls nvcc:
     res = solver(Z0, params)     # a SolveResult, as solve_batch_lanes_tiered
 
 The manifest records, for each library, the hash of its source, headers
-and flags (ops/_build.py::source_hash, the hash in its file name), the
-arch (sm_90a), the torch and CUDA versions, the configuration, the batch
-and the dtype.  `load_solver` raises on any mismatch with the running
-process (torch, CUDA, the card's compute capability, and the sources'
-hash when the tree's sources are present), and the solver it returns
+and flags (ops/_build.py::source_hash, the hash in its file name) and
+the sha256 of the library itself, the arch (sm_90a), the torch and CUDA
+versions, the configuration, the batch and the dtype.  `load_solver`
+raises on any mismatch with the running process (torch, CUDA, the card's
+compute capability, and the sources' hash when the tree's sources are
+present) and on any library whose file name does not carry its source
+hash or whose contents are not the ones exported, and the solver it returns
 raises on any other batch or dtype, as the JAX artifact's `exp.call`
 does.  It never rebuilds and has no fallback.
 """
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import json
 import shutil
 from pathlib import Path
@@ -63,6 +66,10 @@ def _tuples(v):
     return tuple(_tuples(x) for x in v) if isinstance(v, list) else v
 
 
+def _sha256(path: Path) -> str:
+    return hashlib.sha256(Path(path).read_bytes()).hexdigest()
+
+
 def config_from_json(d: dict) -> PlannerConfig:
     """The PlannerConfig whose dataclasses.asdict was written as JSON (its
     lists back to the dataclasses' tuples)."""
@@ -87,7 +94,8 @@ def export_batched_solver(cfg: PlannerConfig, batch: int,
     for source, built in _build.build().items():
         shutil.copyfile(built.path, out / built.path.name)
         libraries[source] = {"file": built.path.name,
-                             "hash": _build.source_hash(source)}
+                             "hash": _build.source_hash(source),
+                             "sha256": _sha256(built.path)}
     manifest = {
         "arch": ARCH,
         "compute_capability": list(CAPABILITY),
@@ -135,6 +143,23 @@ def check_manifest(manifest: dict, device) -> None:
                 f"{manifest['compute_capability']}), the card is {cap}")
 
 
+def check_libraries(manifest: dict, path) -> None:
+    """Raise RuntimeError unless each library in the directory at `path` is
+    the one exported: its file name carries its source hash and its
+    contents have the manifest's sha256."""
+    for source, lib in manifest["libraries"].items():
+        want = f"{Path(source).stem}_{lib['hash']}.so"
+        if lib["file"] != want:
+            raise RuntimeError(
+                f"{source}: library file {lib['file']} does not carry the "
+                f"manifest's source hash (expected {want})")
+        have = _sha256(Path(path) / lib["file"])
+        if have != lib["sha256"]:
+            raise RuntimeError(
+                f"{source}: {lib['file']} has sha256 {have}, the exported "
+                f"library {lib['sha256']}: export the solver again")
+
+
 def load_solver(path, *, device) -> Callable:
     """The exported solver at `path` on `device`: fn(Z0, params) ->
     SolveResult, which runs solve_batch_lanes_tiered with the exported
@@ -143,6 +168,7 @@ def load_solver(path, *, device) -> Callable:
     path = Path(path)
     manifest = read_manifest(path)
     check_manifest(manifest, device)
+    check_libraries(manifest, path)
     for source, lib in manifest["libraries"].items():
         _build.register_prebuilt(source, path / lib["file"])
     cfg = config_from_json(manifest["config"])

@@ -46,6 +46,16 @@ from pathlib import Path
 import numpy as np
 
 
+def card_line() -> str:
+    """The card's name and power limit as nvidia-smi gives them (here, not
+    from chip_smoke.py, so that every version of it times)."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+
+
 def probe(args) -> None:
     if args.root:
         sys.path.insert(0, str(Path(args.root).resolve()))
@@ -76,7 +86,7 @@ def probe(args) -> None:
                                      for g, r in zip(got, ref))
         return out
 
-    out = {"root": args.root or ".", "card": chip_smoke.card_line()}
+    out = {"root": args.root or ".", "card": card_line()}
     inputs = chip_smoke.step_inputs(1, B, f32, dev)
     Z = inputs["mpc_output"][:, :N]
     targs = (Z[..., 8:17].reshape(B * N, 9).contiguous(),

@@ -73,7 +73,7 @@ def test_manifest_round_trip(exported):
     for source, lib in m["libraries"].items():
         assert lib["hash"] == _build.source_hash(source)
         assert lib["file"] == _build._paths(source)[1].name
-        assert (path / lib["file"]).is_file()
+        assert lib["sha256"] == aot._sha256(path / lib["file"])
 
 
 @pytest.mark.parametrize("cfg", [workloads.bench_config(),
@@ -113,6 +113,29 @@ def _edit(path, **changes):
 def test_load_rejects_a_manifest_of_another_build(exported, change, match):
     path, _ = exported
     _edit(path, **change)
+    with pytest.raises(RuntimeError, match=match):
+        aot.load_solver(path, device="cpu")
+    assert _build._prebuilt == {}
+
+
+@pytest.mark.parametrize("swap", ["contents", "file name"])
+def test_load_rejects_a_library_that_is_not_the_exported_one(exported,
+                                                             monkeypatch,
+                                                             swap):
+    path, _ = exported
+    lib = aot.read_manifest(path)["libraries"]["corridor.cu"]
+    if swap == "contents":
+        (path / lib["file"]).write_bytes(b"\x7fELF another library")
+        match = "corridor.cu: .* has sha256"
+    else:
+        other = "corridor_" + "0" * 16 + ".so"
+        (path / lib["file"]).rename(path / other)
+        m = aot.read_manifest(path)
+        m["libraries"]["corridor.cu"]["file"] = other
+        (path / aot.MANIFEST).write_text(json.dumps(m))
+        match = "does not carry the manifest's source hash"
+    # with the tree's sources absent, as on a machine the solver ships to
+    monkeypatch.setattr(_build, "CSRC", path / "no-sources")
     with pytest.raises(RuntimeError, match=match):
         aot.load_solver(path, device="cpu")
     assert _build._prebuilt == {}

@@ -149,7 +149,7 @@ def test_config1_oracle_parity():
 
 
 def test_config2_matches_the_jax_example_s_step(capsys):
-    got = ex2.main(["--device", "cpu", "--dtype", "float64"])
+    got = ex2.main(["--device", "cpu"])
     assert _printed(capsys, r"exit=(-?\d+) iters=(\d+)") == (
         got["exit"], got["iters"])
     f64 = jnp.float64
@@ -175,8 +175,10 @@ def test_config2_matches_the_jax_example_s_step(capsys):
     assert got["radii"][1] > got["radii"][0]
 
 
-def test_config4_matches_the_jax_example_s_grid(capsys):
-    got = ex4.main(["--device", "cpu", "--goals", "4", "--forces", "2"])
+def test_config4_matches_the_jax_example_s_grid(capsys, monkeypatch):
+    monkeypatch.setattr(ex4, "N_GOALS", 4)
+    monkeypatch.setattr(ex4, "N_FORCES", 2)
+    got = ex4.main(["--device", "cpu"])
     assert "batch: 8" in capsys.readouterr().out
     rng = np.random.default_rng(1)
     scen = jbm.make_scenarios(

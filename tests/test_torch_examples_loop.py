@@ -45,8 +45,9 @@ def _fleet_probe():
 @pytest.fixture(scope="module")
 def config3(tmp_path_factory):
     out = tmp_path_factory.mktemp("scene")
-    got = ex3.main(["--device", "cpu", "--duration", str(DURATION),
-                    "--out-dir", str(out)])
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(ex3, "DURATION", DURATION)
+        got = ex3.main(["--device", "cpu", "--out-dir", str(out)])
     x0 = np.zeros(9)
     x0[2] = 1.2
     planner = jplan.ResilientPlanner(JCFG, max_cloud=2048, dtype=jnp.float64)

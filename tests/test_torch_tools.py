@@ -15,6 +15,7 @@ import torch
 
 from forces_resilient_planner_tpu_torch.engine import workloads
 from forces_resilient_planner_tpu_torch.oracle import pool as oracle_pool
+from forces_resilient_planner_tpu_torch.solver import ipm_lanes
 from forces_resilient_planner_tpu_torch.solver.ipm import SolveResult
 from forces_resilient_planner_tpu_torch.tools import parity_certificate as pc
 from forces_resilient_planner_tpu_torch.tools import stress_oracle as so
@@ -124,39 +125,82 @@ def test_stress_record_fields_and_confusion():
         "f64 -7, f32 -7": 1, "f64 -6, f32 -6": 1}
 
 
+def _keyed_lanes(lanes):
+    _, params64 = workloads.stress_params(max(lanes) + 1, dtype=torch.float64,
+                                          device="cpu")
+    fp = so.oracle_fingerprint(workloads.bench_config())
+    return params64, {
+        ln: so.lane_key(ipm_lanes._map_params(lambda a, i=ln: a[i],
+                                              params64), 999_000 + ln, fp)
+        for ln in lanes}
+
+
 def test_stress_classification_resumes_from_its_partial_file(tmp_path,
                                                              monkeypatch):
+    params64, keys = _keyed_lanes([4, 9])
     part = tmp_path / "STRESS.partial.jsonl"
-    recs = [{"lane": 4, "feasible": False, "oracle": [8, 0.7, 14.0],
-             "seconds": 1.0},
-            {"lane": 9, "feasible": True, "oracle": [0, 0.0, 1e-6],
-             "seconds": 2.0}]
+    recs = [{"lane": 4, "key": keys[4], "feasible": False,
+             "oracle": [8, 0.7, 14.0], "seconds": 1.0},
+            {"lane": 9, "key": keys[9], "feasible": True,
+             "oracle": [0, 0.0, 1e-6], "seconds": 2.0},
+            {"lane": 11, "key": "another run's", "feasible": True,
+             "oracle": [0, 0.0, 1e-6], "seconds": 2.0}]
     part.write_text("\n".join(json.dumps(r) for r in recs) + "\nnot json\n")
 
     def no_pool(*a, **k):
         raise AssertionError("a classified lane went to the oracle again")
     monkeypatch.setattr(oracle_pool, "make_pool", no_pool)
-    got = so.classify_lanes([4, 9], None, part)
+    got = so.classify_lanes([4, 9], params64, part)
     assert got == ({4: recs[0], 9: recs[1]}, 2)
+
+
+@pytest.mark.parametrize("stale", ["problem", "oracle", "seed", "unkeyed"])
+def test_stress_resume_rejects_a_verdict_of_another_problem_or_oracle(
+        tmp_path, monkeypatch, stale):
+    params64, keys = _keyed_lanes([4])
+    fp = so.oracle_fingerprint(workloads.bench_config())
+    lane = ipm_lanes._map_params(lambda a: a[4], params64)
+    key = {
+        "problem": so.lane_key(lane._replace(f_ext=lane.f_ext + 1e-9),
+                               999_004, fp),
+        "oracle": so.lane_key(lane, 999_004, fp + b"another ftol"),
+        "seed": so.lane_key(lane, 999_005, fp),
+        "unkeyed": None,
+    }[stale]
+    assert key != keys[4]
+    rec = {"lane": 4, "feasible": True, "oracle": [0, 0.0, 1e-6],
+           "seconds": 1.0}
+    if key is not None:
+        rec["key"] = key
+    part = tmp_path / "STRESS.partial.jsonl"
+    part.write_text(json.dumps(rec) + "\n")
+    monkeypatch.setattr(oracle_pool, "make_pool", None)
+    with pytest.raises(RuntimeError, match="delete the file"):
+        so.classify_lanes([4], params64, part)
 
 
 @pytest.mark.slow
 def test_tools_run_end_to_end_on_the_cpu(tmp_path, monkeypatch):
     """Both tools' main at a small size on the CPU (the oracle over a few
     lanes in a pool: minutes)."""
+    monkeypatch.setattr(so, "STRESS_B", 12)
+    monkeypatch.setattr(so, "RESUME_DIR", tmp_path / "resume")
     out = tmp_path / "stress.json"
-    assert so.main(["--B", "12", "--device", "cpu", "--out", str(out),
+    assert so.main(["--device", "cpu", "--out", str(out),
                     "--workers", "2"]) == 0
     s = json.loads(out.read_text())
     assert s["n_false_optimals"] == 0 and s["f32"]["n_false_optimals"] == 0
-    assert (tmp_path / "stress.partial.jsonl").exists()
+    assert s["n_oracle_lanes_resumed"] == 0 and s["resumed_from"] is None
+    assert (tmp_path / "resume" / "stress.partial.jsonl").exists()
     orig = workloads.bench_seeds
     monkeypatch.setattr(workloads, "bench_seeds",
                         lambda seed: orig(seed, 4, 2))
+    monkeypatch.setattr(pc, "BOX_SEEDS", (1000,))
+    monkeypatch.setattr(pc, "BOX_LANES_PER_SET", 1)
+    monkeypatch.setattr(pc, "FENCE_LANES", 1)
     monkeypatch.setattr(pc, "FENCE_B", 8)
     monkeypatch.setattr(pc, "PIPE_B", 4)
     out = tmp_path / "parity.json"
-    assert pc.main(["--device", "cpu", "--out", str(out), "--workers", "2",
-                    "--box-seeds", "1000", "--box-lanes", "1",
-                    "--fence-lanes", "1"]) == 0
+    assert pc.main(["--device", "cpu", "--out", str(out),
+                    "--workers", "2"]) == 0
     assert json.loads(out.read_text())["n_lanes"] == 2
