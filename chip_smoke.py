@@ -37,7 +37,12 @@ CUDA kernel against its plain PyTorch version on the card:
   parity certificate against the independent SLSQP oracle (tools/
   parity_certificate.py, the oracle in a pool of CPU processes), the
   shipped solver (utils/aot.py) loaded in a process without nvcc, and the
-  BASELINE examples 1-4 and 6 (K1, K2, K3).
+  BASELINE examples 1-4 and 6 (K1, K2, K3);
+  slice 7, the corridor decomposition on every cloud and option: K3's
+  gathered route (ops/csrc/corridor.cu: clouds past a CTA's shared memory,
+  past 65,535 obstacles, and CorridorConfig.max_active_obstacles below the
+  cloud size) against its plain version, and the f64 single-robot planner
+  at max_cloud = 8192 on BASELINE config 3's fence loop (K1, K2, K3).
 
 Phases, one line each (any failure exits non-zero and nothing after it is
 printed):
@@ -47,8 +52,9 @@ printed):
      prints build seconds and the ptxas register / spill report of each
      entry function, K1's lanes and shared memory per CTA, K2's stage lanes,
      threads and shared memory per CTA (a team of 9 threads per lane) and
-     K3's lanes per stage, threads and shared memory per CTA at M = 256,
-     1024 and 2048, K4a's, K4b's, K5a's and K5b's lanes, threads and shared
+     K3's route, lanes per stage, threads, shared memory per CTA and
+     scratch at M = 256, 1024, 2048, 8192, 16,384 and 70,000 and at M = 2048
+     with k = 64, K4a's, K4b's, K5a's and K5b's lanes, threads and shared
      memory per CTA (a warp per lane)
   2. K1 vs its plain PyTorch version on the card at B = 4096, one
      iteration from the initial state and one after 8 plain iterations:
@@ -204,6 +210,18 @@ printed):
      line; K1 once per host-loop step; config 1 exit 1 (oracle |du| <=
      1e-3), config 2 exit 1 with K2 = K3 = 1, config 3 K2 = K3 = solves,
      config 4 solved >= 0.999, config 6 no collision, K2 = K3 = ticks
+  16. slice 7: K3's gathered route on phase 6's random segments at each of
+     GATHERED_CASES (f32 B = 64, M = 16,384; f64 B = 64, M = 8,192; B = 8,
+     M = 70,000; k = 64 at M = 256 and 2048 with B = 512), the route checked
+     first: f64 rows within 1e-9 of the plain version on every row, f32
+     rows' max |d| printed; the first dtype's ms beside the plain version's
+     and the bound; the shared route at f64 on the fence's voxel cloud
+     (tests/test_closed_loop.py's scene, segments from 0.1 m lattice
+     points), within 1e-9 on every row; then BASELINE config 3's loop
+     (examples/config3_obstacle_scene.py: the fence, its wind, 7 s) with
+     the planner at f64 and max_cloud = 8192: final position within 0.5 m
+     of the goal, no trace point in an occupied voxel, K3 once a solve by
+     the gathered route, K1 once a host-loop step; its MPC tick p50 / p99
 
 Every line is prefixed with the script's elapsed seconds.  The
 {"kernels"} line's bound_ms is the larger of the bytes the kernel must
@@ -211,7 +229,10 @@ move (inputs read once, outputs written once) over the H100's 3.35 TB/s
 and its operations over 67 TFLOP/s (f32, no tensor cores), computed from
 this run's inputs (K2: the doublings its lanes take; K3: the sets of the
 rounds that run on its data); library_ms is null for all seven kernels (no single
-PyTorch call computes any of them).  max_abs_err is, for every kernel, the
+PyTorch call computes any of them).  K3 has two entries, one per route:
+"corridor" (the shared route, phases 6-8) and "corridor_gathered" (phase
+16: launches on the f64 planner's run, the rest at B = 64, M = 16,384,
+f32).  max_abs_err is, for every kernel, the
 f32 kernel against its plain version on the main path's inputs at the
 main path's shape (K1: the grid's initial IPM state; K2: the step's stage lanes; K3:
 the step's segments and clouds; K4: the predictor-corrector grid's initial
@@ -663,31 +684,33 @@ def stage_segments(inputs, cfg):
             inputs["obstacles"], inputs["obstacle_mask"])
 
 
-def corridor_f64(args, label):
+def corridor_f64(args, label, phase=6):
     """K3 vs plain at f64: A and b within 1e-9 on every row."""
     dA, db = corridor_rows(args)
     worst = max(dA.max().item(), db.max().item())
     if worst > 1e-9:
         fail(f"K3 f64 {label}: max row |d| {worst:.3e} > 1e-9 on "
              f"{int(((dA > 1e-9) | (db > 1e-9)).sum())} (robot, stage)")
-    say(f"phase 6 K3 vs plain f64, {label}: max |dA| {dA.max().item():.2e}, "
+    say(f"phase {phase} K3 vs plain f64, {label}: max |dA| {dA.max().item():.2e}, "
         f"max |db| {db.max().item():.2e} (bar 1e-9 on every row)")
 
 
 def reset_counts():
     """Every kernel's launch count and the host-loop step count to 0."""
     torch.cuda.synchronize()
-    tube_kernel.LAUNCHES = corridor_kernel.LAUNCHES = 0
-    ipm_kernel.LAUNCHES = 0
+    tube_kernel.LAUNCHES = ipm_kernel.LAUNCHES = 0
+    for name in corridor_kernel.LAUNCHES:
+        corridor_kernel.LAUNCHES[name] = 0
     for name in lqr_kernel.LAUNCHES:
         lqr_kernel.LAUNCHES[name] = 0
     ipm_lanes.STEPS = 0
 
 
 def launch_counts():
-    """(K1, K2, K3, K4a, K4b) launches."""
+    """(K1, K2, K3, K4a, K4b) launches (K3: both routes)."""
     return (ipm_kernel.LAUNCHES, tube_kernel.LAUNCHES,
-            corridor_kernel.LAUNCHES, lqr_kernel.LAUNCHES["lqr_factor_fused"],
+            sum(corridor_kernel.LAUNCHES.values()),
+            lqr_kernel.LAUNCHES["lqr_factor_fused"],
             lqr_kernel.LAUNCHES["lqr_backsolve_fused"])
 
 
@@ -959,10 +982,10 @@ def run_slice2(dev, card):
     lib3 = _build.load(corridor_kernel.SOURCE, corridor_kernel._bind)
     msx = cuda_ms(lambda: corridor_kernel.decompose_stages_lanes(
         *big, cfg.corridor, cfg.model.nh), 5)
-    lanes, threads, smem = corridor_kernel.launch_geometry(lib3, N, Mx, f32)
+    geo = corridor_kernel.launch_geometry(lib3, B, N, Mx, f32)
     say(f"phase 8 K3 f32 [{card}] at B={B} N={N} M={Mx}: {msx:.3f} ms "
-        f"({lanes} lanes per stage, {threads} threads, {smem} B of shared "
-        "memory per CTA)")
+        f"(route {geo.route}, {geo.lanes} lanes per stage, {geo.threads} "
+        f"threads, {geo.smem} B of shared memory per CTA)")
     del big
 
     for drift, label in ((False, ""), (True, ", every 4th robot drifted")):
@@ -2322,6 +2345,193 @@ def run_slice6(dev, card, build_s):
     }
 
 
+# ---------------------------------------------------------------------------
+# phase 16: slice 7, the corridor decomposition on every cloud and option
+# ---------------------------------------------------------------------------
+
+# K3's gathered route (cloud past shared memory, or compaction): (B, M, k,
+# dtypes held against the plain version, the first also timed); the first
+# case is the {"kernels"} entry's shape
+GATHERED_CASES = (
+    (64, 16_384, 0, ("f32",)),
+    (64, 8_192, 0, ("f64",)),
+    (8, 70_000, 0, ("f32", "f64")),
+    (512, 256, 64, ("f32", "f64")),
+    (512, 2048, 64, ("f32", "f64")),
+)
+DTYPES = {"f32": torch.float32, "f64": torch.float64}
+PLANNER_CLOUD = 8192     # phase 16: the f64 planner's max_cloud
+
+
+def fence_segments(B, N, seed):
+    """Stage segments about the fence's gap: p1 on points of the 0.1 m
+    lattice in front of, in and behind the fence, p2 0.1 m from it along
+    +-x, +-y or +-z at the even stages and along a random yaw at the odd
+    ones."""
+    rng = np.random.default_rng(seed)
+    p1 = np.stack([rng.integers(5, 26, (B, N)), rng.integers(-5, 17, (B, N)),
+                   rng.integers(6, 18, (B, N))], -1) * 0.1
+    axis = np.zeros((B, N, 3))
+    np.put_along_axis(axis, rng.integers(0, 3, (B, N, 1)),
+                      rng.choice([-0.1, 0.1], (B, N, 1)), -1)
+    yaw = rng.uniform(-np.pi, np.pi, (B, N))
+    generic = 0.1 * np.stack([np.cos(yaw), np.sin(yaw), np.zeros_like(yaw)],
+                             -1)
+    return p1, p1 + np.where((np.arange(N) % 2 == 0)[None, :, None], axis,
+                             generic)
+
+
+def gathered_case(B, M, k, dtypes, dev, card):
+    """K3 on random stage segments (phase 6's generator) at B x N x M with
+    the compaction to k (0: off): the gathered route (else the phase
+    fails); f64 rows within 1e-9 of the plain version's on every row, f32
+    rows' max |d| printed; then, at the first of dtypes, ms of K3 and of
+    the plain version beside K3's bound.  Returns (f32 max |d|, ms, plain
+    ms, bound)."""
+    cfg = DEFAULT_CONFIG
+    N = cfg.model.N
+    ccfg = dataclasses.replace(cfg.corridor, max_active_obstacles=k)
+    lib = _build.load(corridor_kernel.SOURCE, corridor_kernel._bind)
+    raw = random_segments(B, N, M, 31 + M)
+    msg, err32 = [], float("nan")
+    for name in dtypes:
+        dtype = DTYPES[name]
+        args = [torch.as_tensor(a, dtype=dtype, device=dev)
+                for a in raw[:3]] + [torch.as_tensor(raw[3], device=dev)]
+        geo = corridor_kernel.launch_geometry(
+            lib, B, N, M, dtype, corridor_kernel.compaction_k(ccfg, M))
+        if geo.route != 2:
+            fail(f"K3 B={B} M={M} k={k} {name}: route {geo.route}, not the "
+                 "gathered one")
+        dA, db = corridor_rows(args, ccfg, cfg.model.nh)
+        worst = max(dA.max().item(), db.max().item())
+        if name == "f64" and worst > 1e-9:
+            fail(f"K3 gathered f64 B={B} M={M} k={k}: max row |d| "
+                 f"{worst:.3e} > 1e-9 on "
+                 f"{int(((dA > 1e-9) | (db > 1e-9)).sum())} (robot, stage)")
+        if name == "f32":
+            err32 = worst
+            share = ((dA <= 1e-4) & (db <= 1e-4)).double().mean().item()
+            msg.append(f"f32 max |d| {worst:.2e}, rows within 1e-4 on "
+                       f"{share:.6f} of (robot, stage)")
+        else:
+            msg.append(f"f64 max |d| {worst:.2e} (bar 1e-9 on every row)")
+    timed = DTYPES[dtypes[0]]
+    args = [torch.as_tensor(a, dtype=timed, device=dev)
+            for a in raw[:3]] + [torch.as_tensor(raw[3], device=dev)]
+    cargs = (*args, ccfg, cfg.model.nh)
+    ms = cuda_ms(lambda: corridor_kernel.decompose_stages_lanes(*cargs), 3)
+    ms_plain = cuda_ms(
+        lambda: corridor_kernel.decompose_stages_reference(*cargs), 1)
+    ops, work = corridor_flops(args, ccfg)
+    b = bound(tensor_bytes(args, corridor_kernel.decompose_stages_reference(
+        *cargs)), ops, timed)
+    geo = corridor_kernel.launch_geometry(
+        lib, B, N, M, timed, corridor_kernel.compaction_k(ccfg, M))
+    say(f"phase 16 K3 gathered B={B} N={N} M={M} k={k} [{card}]: "
+        + "; ".join(msg) + f"; {dtypes[0]} {ms:.3f} ms vs plain "
+        f"{ms_plain:.3f} ms, "
+        f"bound {b[0]:.4f} ms by {b[1]} ({1e-9 * ops:.4f} GFLOP of work "
+        f"{work}), {100 * b[0] / ms:.2f}% of the bound; {geo.lanes} lanes "
+        f"per stage, {geo.threads} threads, scratch {geo.scratch} B")
+    return err32, ms, ms_plain, b
+
+
+def fence_voxels_f64(dev):
+    """K3's shared route at f64 on the fence's voxel cloud (tests/
+    test_closed_loop.py's scene, on the 0.1 m lattice) and segments from
+    lattice points: rows within 1e-9 of the plain version's."""
+    cfg = DEFAULT_CONFIG
+    B, N = 64, cfg.model.N
+    cloud = fence_points()
+    p1, p2 = fence_segments(B, N, 5)
+    f64 = torch.float64
+    args = [torch.as_tensor(p1, dtype=f64, device=dev),
+            torch.as_tensor(p2, dtype=f64, device=dev),
+            torch.as_tensor(np.repeat(cloud[None], B, 0), dtype=f64,
+                            device=dev),
+            torch.ones(B, len(cloud), dtype=torch.bool, device=dev)]
+    lib = _build.load(corridor_kernel.SOURCE, corridor_kernel._bind)
+    geo = corridor_kernel.launch_geometry(lib, B, N, len(cloud), f64)
+    if geo.route != 1:
+        fail(f"K3 on the fence's cloud: route {geo.route}, not the shared one")
+    corridor_f64(args, f"the fence's voxel cloud B={B} N={N} M={len(cloud)}, "
+                 "lattice segments, shared route", phase=16)
+
+
+def check_planner_f64(dev, card):
+    """BASELINE config 3's loop (examples/config3_obstacle_scene.py: the
+    fence, its sinusoidal wind, 7 s to the goal) with the planner at f64
+    and max_cloud = PLANNER_CLOUD, past the shared route's 6,456 at f64:
+    final position within 0.5 m of the goal, no trace point in an occupied
+    voxel, K3 once a solve by the gathered route.  Returns its launches."""
+    cfg = workloads.closed_loop_cfg()
+    reset_counts()
+    t0 = time.perf_counter()
+    p = planner.ResilientPlanner(cfg, max_cloud=PLANNER_CLOUD,
+                                 dtype=torch.float64, device=dev)
+    x0 = np.zeros(9)
+    x0[2] = 1.2
+    sim = simulator.QuadSim(cfg.model, x0.copy(), np.zeros(3))
+    p.on_odometry(x0)
+    p.set_occupied(config3.fence())
+    trace = simulator.run_closed_loop(p, sim, config3.GOAL,
+                                      duration=config3.DURATION,
+                                      force_schedule=config3.wind)
+    wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    l1, l2, _, l4a, l4b = launch_counts()
+    routes = dict(corridor_kernel.LAUNCHES)
+    steps, d = ipm_lanes.STEPS, p.diag
+    pos = np.asarray(trace["pos"])
+    occ = occ_grid.voxel_state(p.grid, torch.as_tensor(
+        pos, dtype=p.grid.buffer.dtype, device=dev), cfg.map)
+    hits = int((occ == 1).sum())
+    goal = np.array([*config3.GOAL, 1.2])
+    miss = float(np.linalg.norm(pos[-1] - goal))
+    solve = np.asarray(d.timers._phases["solve"].samples[3:]) * 1e3
+    say(f"phase 16 planner f64 max_cloud={PLANNER_CLOUD}, BASELINE config 3's "
+        f"fence loop {config3.DURATION} s [{card}]: final distance to the goal "
+        f"{miss:.3f} m (bar 0.5), {hits} trace points in occupied voxels "
+        f"(bar 0), solves {d.solves}, failures {d.solve_failures}, replans "
+        f"{d.replans}; MPC tick (solve) p50 {np.percentile(solve, 50):.2f} "
+        f"ms, p99 {np.percentile(solve, 99):.2f} ms over {len(solve)} ticks "
+        f"after 3; launches K3 {routes}, K2 {l2}, K1 {l1}, host-loop steps "
+        f"{steps}; wall {wall:.2f} s")
+    if not miss < 0.5:
+        fail(f"planner f64: final distance {miss:.3f} m to the goal >= 0.5")
+    if hits:
+        fail(f"planner f64: {hits} trace points in occupied voxels")
+    if not (routes["corridor_gathered"] == l2 == d.solves > 0
+            and routes["corridor"] == 0 and l1 == steps > 0
+            and l4a == l4b == 0):
+        fail(f"planner f64 launches: K3 {routes}, K2 {l2} vs {d.solves} "
+             f"solves, K1 {l1} vs {steps} steps")
+    return routes["corridor_gathered"]
+
+
+def run_slice7(dev, card):
+    """Phase 16: K3's gathered route against the plain version at each of
+    GATHERED_CASES, the shared route at f64 on the fence's voxel cloud, and
+    the f64 planner past the shared route.  Returns the gathered route's
+    {"kernels"} entry."""
+    t0 = time.perf_counter()
+    first = None
+    for B, M, k, dtypes in GATHERED_CASES:
+        got = gathered_case(B, M, k, dtypes, dev, card)
+        first = first or got
+    fence_voxels_f64(dev)
+    launches = check_planner_f64(dev, card)
+    say(f"phase 16 total {time.perf_counter() - t0:.1f} s")
+    err, ms, ms_plain, b = first
+    return {"name": "corridor_gathered", "route": "cuda",
+            "source": CSRC + "corridor.cu",
+            "replaces": "forces_resilient_planner_tpu/ops/corridor_pallas.py:98",
+            "launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": ms_plain, "bound_ms": b[0], "bound_by": b[1],
+            "library_ms": None}
+
+
 def lane_position_check(state, params, cfg, seed):
     """K1 on a permutation of the lanes gives the permuted outputs bit for
     bit, and the 256 lanes that the tier schedule would compact (the
@@ -2451,13 +2661,16 @@ def build_phase():
     lib3 = _build.load(corridor_kernel.SOURCE, corridor_kernel._bind)
     geo = []
     for dtype in (torch.float32, torch.float64):
-        for M in (STEP_M, 1024, 2048):
-            lanes, threads, smem = corridor_kernel.launch_geometry(
-                lib3, N, M, dtype)
-            geo.append(f"{str(dtype)[6:]} M={M}: {lanes} lanes per stage, "
-                       f"{threads} threads, {smem} B of shared memory")
-    say(f"phase 1 K3 (corridor.cu) per CTA (one scenario, N = {N}): "
-        + "; ".join(geo) + " (registers: the corridor.cu line above)")
+        for M, k in ((STEP_M, 0), (1024, 0), (2048, 0), (8192, 0),
+                     (16_384, 0), (70_000, 0), (2048, 64)):
+            g = corridor_kernel.launch_geometry(lib3, STEP_B, N, M, dtype, k)
+            geo.append(f"{str(dtype)[6:]} M={M} k={k}: route {g.route}, "
+                       f"{g.lanes} lanes per stage, {g.threads} threads, "
+                       f"{g.smem} B of shared memory, {g.scratch} B of scratch "
+                       f"at B={STEP_B}")
+    say(f"phase 1 K3 (corridor.cu) per CTA (one scenario, N = {N}; route 1 "
+        "shared, 2 gathered): " + "; ".join(geo)
+        + " (registers: the corridor.cu line above)")
     geo = []
     for name, (label, _) in LQR_KERNELS.items():
         for dtype in (torch.float32, torch.float64):
@@ -2511,6 +2724,9 @@ def main() -> int:
     # ---- phase 15: stress, certificate, shipped solver, examples ----------
     slice6 = run_slice6(dev, card, build_s)
 
+    # ---- phase 16: the corridor decomposition on every cloud and option ---
+    slice7 = run_slice7(dev, card)
+
     say(f"chip_smoke total {time.perf_counter() - T0:.1f} s")
     # max_abs_err: f32 kernel vs plain from the initial state, the check
     # held elementwise (the mid-solve one is printed in phase 2)
@@ -2522,7 +2738,7 @@ def main() -> int:
         "max_abs_err": errs[torch.float32], "ms": ms_kernel,
         "plain_ms": ms_plain, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None,
-    }, *slice2, *slice3]
+    }, *slice2, slice7, *slice3]
     for k in kernels:
         if k["name"] in slice6:
             k["launches_phase15"] = slice6[k["name"]]

@@ -36,8 +36,10 @@ NVCC_FLAGS = (
 # lqr.cu contracts no multiply-add into an FMA: K4 and K5 then round op for
 # op as their plain PyTorch versions do and match them bit for bit on the
 # card, where the Riccati sweep of a late interior-point iteration turns a
-# last-bit difference into a relative one of 1e-9 and more
-SOURCE_FLAGS = {"lqr.cu": ("-fmad=false",)}
+# last-bit difference into a relative one of 1e-9 and more; corridor.cu
+# neither, and writes the plain version's emulated FMAs as __fma_rn, so that
+# it decides the ties of a voxel cloud as the plain version does
+SOURCE_FLAGS = {"lqr.cu": ("-fmad=false",), "corridor.cu": ("-fmad=false",)}
 
 
 class Built(NamedTuple):

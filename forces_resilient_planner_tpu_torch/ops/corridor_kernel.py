@@ -3,19 +3,27 @@
 Counterpart of forces_resilient_planner_tpu/ops/corridor_pallas.py.  The
 kernel (csrc/corridor.cu) replaces the Pallas TPU kernel
 `_corridor_kernel` (corridor_pallas.py:98): one decompose_segment per
-(scenario, stage), with the scenario's obstacle cloud held in shared
-memory across its stages.
+(scenario, stage), by one of two routes that `launch_geometry` picks from
+(M, dtype, K = CorridorConfig.max_active_obstacles): the shared route
+holds the scenario's cloud in shared memory across its stages (M up to
+11,622 at f32 and 6,456 at f64, no compaction); the gathered route first
+gathers each stage's bbox set, or with 0 < K < M its K nearest obstacles,
+into a scratch list in global memory and decomposes from there (any M, in
+chunks of scenarios).
 
 Route by device: on a CPU tensor `decompose_stages_lanes` runs
 `decompose_stages_reference` (corridor/decomp.py over the B N stage
 lanes); on a CUDA tensor it launches the kernel or raises.  Unlike the JAX
-package there is no batch-size gate: one scenario on the card runs the
-kernel too.  The kernel does not compact obstacles: with the opt-in
-CorridorConfig.max_active_obstacles below the cloud size it raises.
+package there is no batch-size gate (one scenario on the card runs the
+kernel too), and the compaction runs on every route: the JAX package's
+batched TPU path ignores max_active_obstacles (pipeline_batch.py:71-74),
+so its result depends on the route; here the kernel computes what the
+plain version computes.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -26,8 +34,10 @@ from forces_resilient_planner_tpu_torch.ops import _build
 SOURCE = "corridor.cu"
 WALLS = 6
 
-# kernel launches, over all calls in this process
-LAUNCHES = 0
+# the routes of csrc/corridor.cu by number, and kernel launches of each
+# (a call on a route counts one), over all calls in this process
+ROUTES = {1: "corridor", 2: "corridor_gathered"}
+LAUNCHES = {name: 0 for name in ROUTES.values()}
 
 _ENTRY = {torch.float32: ("corridor_f32", ctypes.c_float),
           torch.float64: ("corridor_f64", ctypes.c_double)}
@@ -46,35 +56,56 @@ _STRUCTS = {dt: _consts_struct(ct) for dt, (_, ct) in _ENTRY.items()}
 
 
 def _bind(lib):
-    lib.corridor_geometry.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3
+    lib.corridor_geometry.argtypes = ([ctypes.c_int] * 7
+                                      + [ctypes.c_void_p] * 5)
     lib.corridor_geometry.restype = None
     for name, _ in _ENTRY.values():
         fn = getattr(lib, name)
-        fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 4
-                       + [ctypes.c_void_p] * 6 + [ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 6
+                       + [ctypes.c_void_p] * 7 + [ctypes.c_size_t,
+                                                  ctypes.c_void_p])
         fn.restype = ctypes.c_int
 
 
-def launch_geometry(lib, N: int, M: int, dtype, group: int = 0):
-    """(lanes per stage, threads, bytes of shared memory) per CTA (one
-    scenario) of the kernel in `lib` for N stages of M obstacles; group 0
-    is the kernel's default lanes per stage."""
-    lanes, threads = ctypes.c_int(), ctypes.c_int()
-    smem = ctypes.c_size_t()
-    lib.corridor_geometry(N, M, torch.empty((), dtype=dtype).element_size(),
-                          group, ctypes.byref(lanes), ctypes.byref(threads),
-                          ctypes.byref(smem))
-    return lanes.value, threads.value, smem.value
+class Geometry(NamedTuple):
+    route: int      # 1 shared, 2 gathered (ROUTES)
+    lanes: int      # lanes per stage
+    threads: int    # per CTA (one scenario) of the decomposition
+    smem: int       # bytes of shared memory per CTA
+    scratch: int    # bytes of global scratch the call needs
+
+
+def compaction_k(ccfg: CorridorConfig, M: int) -> int:
+    """The compaction's K, 0 when off (K = 0 or K >= M, as
+    decompose_segment reads it)."""
+    k = ccfg.max_active_obstacles
+    return k if 0 < k < M else 0
+
+
+def launch_geometry(lib, B: int, N: int, M: int, dtype, k: int = 0,
+                    group: int = 0, route: int = 0) -> Geometry:
+    """The launch of the kernel in `lib` for B scenarios of N stages of M
+    obstacles, compacted to k (0: off); group 0 and route 0 are the
+    kernel's own choices (the tests force 4, 8, 16 or 32 lanes per stage,
+    or route 1 or 2)."""
+    out = [ctypes.c_int() for _ in range(3)] + [ctypes.c_size_t()
+                                                for _ in range(2)]
+    lib.corridor_geometry(B, N, M, k,
+                          torch.empty((), dtype=dtype).element_size(), group,
+                          route, *(ctypes.byref(o) for o in out))
+    return Geometry(*(o.value for o in out))
 
 
 def launch(lib, p1, p2, obs, obs_mask, ccfg: CorridorConfig, nh: int, stream,
-           group: int = 0):
+           group: int = 0, route: int = 0):
     """One launch of the kernel in `lib` (the nvcc build, or the CPU build
-    of the tests) on checked, contiguous inputs; group: 0, as the wrapper
-    passes, for the kernel's own lanes per stage (from N and M), or 4, 8,
-    16 or 32 to force a width (the tests).  Returns (A, b), allocated like
-    p1.  Raises when the launch fails."""
+    of the tests) on checked, contiguous inputs; group and route: 0, as the
+    wrapper passes, for the kernel's own choices, or forced (the tests).
+    Returns (A, b), allocated like p1, and the Geometry launched.  Raises
+    when the launch fails."""
     B, N, M = p1.shape[0], p1.shape[1], obs.shape[1]
+    k = compaction_k(ccfg, M)
+    geo = launch_geometry(lib, B, N, M, p1.dtype, k, group, route)
     entry, ctype = _ENTRY[p1.dtype]
     consts = _STRUCTS[p1.dtype](
         bbox=(ctype * 3)(*(float(v) for v in ccfg.local_bbox)),
@@ -83,19 +114,18 @@ def launch(lib, p1, p2, obs, obs_mask, ccfg: CorridorConfig, nh: int, stream,
     )
     A = p1.new_empty((B, N, nh, 3))
     b = p1.new_empty((B, N, nh))
+    scratch = torch.empty(geo.scratch, dtype=torch.uint8, device=p1.device)
     rc = getattr(lib, entry)(
-        ctypes.addressof(consts), B, N, M, group, p1.data_ptr(),
+        ctypes.addressof(consts), B, N, M, k, group, route, p1.data_ptr(),
         p2.data_ptr(), obs.data_ptr(), obs_mask.data_ptr(), A.data_ptr(),
-        b.data_ptr(), stream,
+        b.data_ptr(), scratch.data_ptr() if geo.scratch else None,
+        geo.scratch, stream,
     )
     if rc != 0:
         raise RuntimeError(
-            f"corridor kernel launch failed: CUDA error {rc} (one scenario "
-            f"of M = {M} obstacles takes "
-            f"{launch_geometry(lib, N, M, p1.dtype, group)[2]} bytes of "
-            "shared memory)"
-        )
-    return A, b
+            f"corridor kernel launch failed: CUDA error {rc} (route "
+            f"{ROUTES.get(geo.route, geo.route)}, M = {M}, K = {k}: {geo})")
+    return A, b, geo
 
 
 def decompose_stages_reference(p1, p2, obs, obs_mask, ccfg: CorridorConfig,
@@ -177,8 +207,9 @@ def decompose_stages_lanes(p1, p2, obs, obs_mask, ccfg: CorridorConfig,
                            nh: int = 30):
     """All-stage decomposition, batch-leading in and out.  Returns
     (A (B, N, nh, 3), b (B, N, nh)): max_obs_planes peel rows, 6 bbox
-    walls, zero padding (decompose_segment's row layout)."""
-    global LAUNCHES
+    walls, zero padding (decompose_segment's row layout).  On a CUDA tensor
+    the kernel runs by the route launch_geometry picks from (M, dtype, k),
+    and the call counts one launch under that route in LAUNCHES."""
     if p1.device.type == "cpu":
         return decompose_stages_reference(p1, p2, obs, obs_mask, ccfg, nh)
     if p1.device.type != "cuda":
@@ -201,16 +232,9 @@ def decompose_stages_lanes(p1, p2, obs, obs_mask, ccfg: CorridorConfig,
         raise ValueError(f"need B, N, M >= 1, got {B}, {N}, {M}")
     if nh < ccfg.max_obs_planes + WALLS:
         raise ValueError(f"nh = {nh} < max_obs_planes + {WALLS}")
-    k = ccfg.max_active_obstacles
-    if k and k < M:
-        raise ValueError(
-            "the corridor kernel does not compact obstacles "
-            f"(max_active_obstacles = {k} < M = {M}); compaction runs on "
-            "CPU tensors only"
-        )
     lib = _build.load(SOURCE, _bind)
     with torch.cuda.device(p1.device):
-        A, b = launch(lib, p1, p2, obs, obs_mask, ccfg, nh,
-                      torch.cuda.current_stream(p1.device).cuda_stream)
-    LAUNCHES += 1
+        A, b, geo = launch(lib, p1, p2, obs, obs_mask, ccfg, nh,
+                           torch.cuda.current_stream(p1.device).cuda_stream)
+    LAUNCHES[ROUTES[geo.route]] += 1
     return A, b

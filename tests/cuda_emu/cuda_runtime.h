@@ -60,8 +60,11 @@ inline cudaError_t cudaGetDevice(int* dev) {
   return cudaSuccess;
 }
 inline int __popc(unsigned v) { return __builtin_popcount(v); }
+inline int __ffs(unsigned v) { return __builtin_ffs(static_cast<int>(v)); }
 inline float __fmul_rn(float a, float b) { return a * b; }
 inline double __dmul_rn(double a, double b) { return a * b; }
+inline float __fmaf_rn(float a, float b, float c) { return std::fmaf(a, b, c); }
+inline double __fma_rn(double a, double b, double c) { return std::fma(a, b, c); }
 
 struct dim3 {
   unsigned x = 1, y = 1, z = 1;

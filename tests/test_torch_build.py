@@ -65,6 +65,7 @@ PORT_MODULES = [
     "forces_resilient_planner_tpu_torch.ops._build",
     "forces_resilient_planner_tpu_torch.solver.ipm",
     "forces_resilient_planner_tpu_torch.utils.lanes",
+    "forces_resilient_planner_tpu_torch.utils.rounding",
     "forces_resilient_planner_tpu_torch.utils.aot",
     "forces_resilient_planner_tpu_torch.oracle.pool",
     "forces_resilient_planner_tpu_torch.tools.parity_certificate",

@@ -93,7 +93,7 @@ def test_lane_helpers_match_jax():
 
 def test_decompose_stages_lanes_routes_cpu_to_plain():
     p1, p2, obs, mask = (torch.as_tensor(a) for a in _inputs(seed=7))
-    launches = corridor_kernel.LAUNCHES
+    launches = dict(corridor_kernel.LAUNCHES)
     got = corridor_kernel.decompose_stages_lanes(p1, p2, obs, mask,
                                                  CAPS["caps12_shrink4"], 30)
     ref = corridor_kernel.decompose_stages_reference(
@@ -115,11 +115,11 @@ def test_kernel_matches_plain_on_cuda(dtype, M):
     p1, p2, obs, mask = _inputs(B=16, N=C.model.N, M=M, seed=11)
     args = [torch.as_tensor(a, device="cuda") for a in (p1, p2, obs, mask)]
     args = [a.to(dtype) if a.is_floating_point() else a for a in args]
-    launches = corridor_kernel.LAUNCHES
+    launches = corridor_kernel.LAUNCHES["corridor"]
     A, b = corridor_kernel.decompose_stages_lanes(*args, C.corridor, 30)
     Ar, br = corridor_kernel.decompose_stages_reference(*args, C.corridor, 30)
     torch.cuda.synchronize()
-    assert corridor_kernel.LAUNCHES == launches + 1
+    assert corridor_kernel.LAUNCHES["corridor"] == launches + 1
     assert (A - Ar).abs().max().item() <= TOL
     assert (b - br).abs().max().item() <= TOL
 
@@ -212,7 +212,7 @@ def emulated_corridor(tmp_path_factory):
 
 def _emulated_rows(lib, args, group=0, ccfg=C.corridor):
     args = [a.contiguous() for a in args]
-    return corridor_kernel.launch(lib, *args, ccfg, 30, None, group)
+    return corridor_kernel.launch(lib, *args, ccfg, 30, None, group)[:2]
 
 
 @pytest.mark.parametrize("M,group,length", [
@@ -241,8 +241,9 @@ def test_kernel_source_matches_plain_in_its_wide_build(emulated_corridor):
     on every row, both shrink phases run."""
     args = [torch.as_tensor(a) for a in _inputs(B=2, N=10, M=45, seed=12,
                                                 length=2.0)]
-    assert corridor_kernel.launch_geometry(emulated_corridor, 10, 45,
-                                           torch.float64, 32)[1] == 320
+    assert corridor_kernel.launch_geometry(emulated_corridor, 2, 10, 45,
+                                           torch.float64,
+                                           group=32).threads == 320
     A, b = _emulated_rows(emulated_corridor, args, 32)
     Ar, br = corridor_kernel.decompose_stages_reference(*args, C.corridor, 30)
     assert (A - Ar).abs().max().item() <= TOL
@@ -262,10 +263,12 @@ def test_kernel_source_widens_its_groups_with_the_cloud(emulated_corridor):
                                      (f32, 2048, 32, 640),
                                      (f64, 256, 8, 160),
                                      (f64, 2048, 32, 640)):
-        got = corridor_kernel.launch_geometry(emulated_corridor, 20, M, dtype)
-        assert got[:2] == (lanes, threads), (dtype, M, got)
+        got = corridor_kernel.launch_geometry(emulated_corridor, 4096, 20, M,
+                                              dtype)
+        assert (got.route, got.lanes, got.threads) == (1, lanes, threads), (
+            dtype, M, got)
         values = 4 * M * torch.empty((), dtype=dtype).element_size()
-        assert got[2] == values + 20 * 4 * M <= 232448
+        assert got.smem == values + 20 * 4 * M <= 232448
 
 
 def test_kernel_source_breaks_ties_to_the_lower_index(emulated_corridor):
