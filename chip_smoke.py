@@ -42,7 +42,11 @@ CUDA kernel against its plain PyTorch version on the card:
   gathered route (ops/csrc/corridor.cu: clouds past a CTA's shared memory,
   past 65,535 obstacles, and CorridorConfig.max_active_obstacles below the
   cloud size) against its plain version, and the f64 single-robot planner
-  at max_cloud = 8192 on BASELINE config 3's fence loop (K1, K2, K3).
+  at max_cloud = 8192 on BASELINE config 3's fence loop (K1, K2, K3);
+  the headline bench: forces_resilient_planner_tpu_torch/bench.py, the
+  repo's bench.py program on the card (the grid, the B = 1 solve and step,
+  the batched step, config 3's closed loop, the fleet), run as a user runs
+  it, in a process of its own (K1, K2, K3).
 
 Phases, one line each (any failure exits non-zero and nothing after it is
 printed):
@@ -222,6 +226,14 @@ printed):
      the planner at f64 and max_cloud = 8192: final position within 0.5 m
      of the goal, no trace point in an occupied voxel, K3 once a solve by
      the gathered route, K1 once a host-loop step; its MPC tick p50 / p99
+  17. the headline bench: python3 -m forces_resilient_planner_tpu_torch.
+     bench in a child process, which must exit 0 within BENCH_TIMEOUT
+     seconds; its [bench] lines printed; its last stdout line one JSON
+     line with a value > 0, every key of bench.EXTRAS_KEYS in its extras
+     and no other, the card line equal to phase 0's, the closed loop's
+     goal reached with no collision, the fleet reached >= 0.95 with 0
+     collided, batched steps/s > 0; its headline printed beside phase 4's
+     grid rate (information, not a bar)
 
 Every line is prefixed with the script's elapsed seconds.  The
 {"kernels"} line's bound_ms is the larger of the bytes the kernel must
@@ -261,6 +273,7 @@ from unittest import mock
 import numpy as np
 import torch
 
+from forces_resilient_planner_tpu_torch import bench as port_bench
 from forces_resilient_planner_tpu_torch import entry
 from forces_resilient_planner_tpu_torch.config import DEFAULT_CONFIG
 from forces_resilient_planner_tpu_torch.engine import (
@@ -310,6 +323,15 @@ from forces_resilient_planner_tpu_torch.tools import (
 )
 from forces_resilient_planner_tpu_torch.tube import lyapunov
 from forces_resilient_planner_tpu_torch.utils import aot, checkpoint
+from forces_resilient_planner_tpu_torch.utils.measure import (
+    bound,
+    card_line,
+    cuda_ms,
+    k1_flops,
+    riccati_factor_flops,
+    riccati_solve_flops,
+    tensor_bytes,
+)
 
 CSRC = "forces_resilient_planner_tpu_torch/ops/csrc/"
 KERNEL_SOURCE = CSRC + "ipm_iteration.cu"
@@ -453,78 +475,10 @@ def compare_step(state, params, cfg, rel_tol, done_frac, against_f64):
     return rel_all, abs_all, frac
 
 
-def cuda_ms(fn, reps):
-    fn()
-    torch.cuda.synchronize()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    for _ in range(reps):
-        fn()
-    t1.record()
-    torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / reps
-
-
 # ---------------------------------------------------------------------------
 # bounds: the least time the card could take for a kernel's work
+# (utils/measure.py: bound, k1_flops, riccati_*_flops)
 # ---------------------------------------------------------------------------
-
-# NVIDIA H100 SXM published peaks: HBM3 bytes/s, and FLOP/s outside the
-# tensor cores (the kernels use none)
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
-NXB, NU = 13, 4
-NTRI = NXB * (NXB + 1) // 2
-
-
-def tensor_bytes(*objs) -> int:
-    """Bytes of every tensor in objs (tuples and named tuples walked)."""
-    total = 0
-    for o in objs:
-        if torch.is_tensor(o):
-            total += o.numel() * o.element_size()
-        elif isinstance(o, (tuple, list)):
-            total += tensor_bytes(*o)
-    return total
-
-
-def bound(nbytes, flops, dtype=torch.float32):
-    """(bound_ms, bound_by): the larger of the bytes over HBM bandwidth
-    and the operations over the peak rate of their type."""
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = flops / PEAK_FLOPS[dtype]
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                       else "operations")
-
-
-def riccati_factor_flops(N, nh=0):
-    """Per lane, multiply-add = 2: each gap stage's Abar^T P, Bbar^T P,
-    their products with Abar and Bbar, Sh^T K over P's upper triangle, and
-    with nh corridor rows the 3x3 corridor block of the stage QP."""
-    macs = (2 * NXB ** 3 + 2 * NU * NXB * NXB + NU * NU * NXB
-            + 2 * NU * NTRI + 9 * nh)
-    return 2 * (N - 1) * macs
-
-
-def riccati_solve_flops(N):
-    """Per lane: P c, Abar^T Pc, Bbar^T Pc, K^T quh (backsolve); K dx, Abar
-    dx, Bbar du (rollout); P dx (costates), per gap stage."""
-    macs = 3 * NXB * NXB + 2 * NU * NXB + NXB * NU + NU * NXB
-    return 2 * (N - 1) * macs
-
-
-def k1_flops(N):
-    """One K1 iteration per lane: the factor (with the corridor block) and
-    the solve, the Jacobian products Ax, Bx per gap stage; per stage the
-    corridor products of the stationarity and the RHS, J_eq^T lam, and ~12
-    operations for each of the 64 rows in the three row passes (ratios,
-    NaN guard, update)."""
-    dyn = 2 * (81 * 9 + 36 * 9)
-    stage = 2 * (2 * 3 * 30 + 13 * 9 + NXB * NXB) + 64 * 12 * 3
-    return (riccati_factor_flops(N, 30) + riccati_solve_flops(N)
-            + (N - 1) * dyn + N * stage)
-
 
 def corridor_flops(args, ccfg):
     """K3 per call from this run's data: the bbox filter of every stage's
@@ -1702,16 +1656,6 @@ def check_fleet(dev, card):
         f"{short.n_ticks} ticks")
 
 
-def fence_points():
-    """tests/test_closed_loop.py's obstacle scene: a fence at x = 1.5 with
-    its gap at y in (-0.2, 1.6)."""
-    ys = np.arange(-3, 3, 0.1)
-    zs = np.arange(0, 2.6, 0.1)
-    yy, zz = np.meshgrid(ys, zs)
-    pts = np.stack([np.full(yy.size, 1.5), yy.ravel(), zz.ravel()], -1)
-    return pts[~((pts[:, 1] > -0.2) & (pts[:, 1] < 1.6))]
-
-
 def fly_robot(cfg, goal, duration, dev, schedule=None, occupied=None):
     """One robot: ResilientPlanner + QuadSim + run_closed_loop from hover
     at (0, 0, 1.2), f32 on the card, `occupied` points marked in its map
@@ -1772,7 +1716,7 @@ def check_robot(dev, card):
     t0 = time.perf_counter()
     with capture_solves(ROBOT_HOLD_SOLVES) as captured:
         p, trace = fly_robot(cfg, [3.5, 0.0], 7.0, dev,
-                             occupied=fence_points())
+                             occupied=workloads.fence_points())
     wall = time.perf_counter() - t0
     torch.cuda.synchronize()
     l1, l2, l3, l4a, l4b = launch_counts()
@@ -2443,7 +2387,7 @@ def fence_voxels_f64(dev):
     lattice points: rows within 1e-9 of the plain version's."""
     cfg = DEFAULT_CONFIG
     B, N = 64, cfg.model.N
-    cloud = fence_points()
+    cloud = workloads.fence_points()
     p1, p2 = fence_segments(B, N, 5)
     f64 = torch.float64
     args = [torch.as_tensor(p1, dtype=f64, device=dev),
@@ -2474,10 +2418,10 @@ def check_planner_f64(dev, card):
     x0[2] = 1.2
     sim = simulator.QuadSim(cfg.model, x0.copy(), np.zeros(3))
     p.on_odometry(x0)
-    p.set_occupied(config3.fence())
+    p.set_occupied(workloads.fence_points())
     trace = simulator.run_closed_loop(p, sim, config3.GOAL,
                                       duration=config3.DURATION,
-                                      force_schedule=config3.wind)
+                                      force_schedule=workloads.wind)
     wall = time.perf_counter() - t0
     torch.cuda.synchronize()
     l1, l2, _, l4a, l4b = launch_counts()
@@ -2530,6 +2474,50 @@ def run_slice7(dev, card):
             "launches": launches, "max_abs_err": err, "ms": ms,
             "plain_ms": ms_plain, "bound_ms": b[0], "bound_by": b[1],
             "library_ms": None}
+
+
+BENCH_TIMEOUT = 600      # phase 17: the bench child's seconds
+
+
+def check_bench(card, grid_rate):
+    """Phase 17: the port's bench run as a user runs it, in a process of
+    its own; its line checked against its sections' bars."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "forces_resilient_planner_tpu_torch.bench"],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+        text=True, timeout=BENCH_TIMEOUT)
+    for ln in proc.stderr.splitlines():
+        if ln.startswith("[bench]"):
+            say(f"phase 17 {ln}")
+    if proc.returncode != 0:
+        fail(f"the bench exited {proc.returncode}: {proc.stderr[-3000:]}")
+    lines = proc.stdout.strip().splitlines()
+    if not lines:
+        fail("the bench printed no line")
+    line = json.loads(lines[-1])
+    x = line["extras"]
+    if set(x) != port_bench.EXTRAS_KEYS:
+        fail(f"bench extras: missing "
+             f"{sorted(port_bench.EXTRAS_KEYS - set(x))}, extra "
+             f"{sorted(set(x) - port_bench.EXTRAS_KEYS)}")
+    if line["metric"] != port_bench.METRIC or not line["value"] > 0:
+        fail(f"bench line: {line['metric']} = {line['value']}")
+    if x["card"] != card:
+        fail(f"bench card {x['card']!r} != {card!r}")
+    if not (x["closed_loop_goal_reached"] and x["closed_loop_no_collision"]):
+        fail(f"bench closed loop: reached {x['closed_loop_goal_reached']}, "
+             f"no collision {x['closed_loop_no_collision']}")
+    if x["fleet_reached_frac"] < 0.95 or x["fleet_collided_frac"] != 0:
+        fail(f"bench fleet: reached {x['fleet_reached_frac']}, collided "
+             f"{x['fleet_collided_frac']}")
+    if not x["pipeline_batched_steps_per_s"] > 0:
+        fail(f"bench batched steps/s {x['pipeline_batched_steps_per_s']}")
+    say(f"phase 17 bench [{card}]: headline {line['value']} solves/s "
+        f"(phase 4's grid: {grid_rate:.1f} solves/s; information), "
+        f"per call {x['percall_solves_per_s']}, streamed "
+        f"{x['streamed_range']} / {x['streamed_range_2nd']}; the child in "
+        f"{time.perf_counter() - t0:.1f} s")
 
 
 def lane_position_check(state, params, cfg, seed):
@@ -2623,7 +2611,7 @@ def device_phase():
     torch.cuda.set_device(dev)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    card = parity.card_line(dev)
+    card = card_line(dev)
     kind = torch.cuda.get_device_name(0)
     say(f"phase 0 device: {kind} | nvidia-smi: {card} | "
         f"torch {torch.__version__} cuda {torch.version.cuda}")
@@ -2726,6 +2714,9 @@ def main() -> int:
 
     # ---- phase 16: the corridor decomposition on every cloud and option ---
     slice7 = run_slice7(dev, card)
+
+    # ---- phase 17: the headline bench -------------------------------------
+    check_bench(card, B / lat_ms.mean() * 1e3)
 
     say(f"chip_smoke total {time.perf_counter() - T0:.1f} s")
     # max_abs_err: f32 kernel vs plain from the initial state, the check

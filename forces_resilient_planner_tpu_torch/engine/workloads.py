@@ -1,10 +1,12 @@
-"""The benchmark workloads that chip_smoke.py drives, in the port's own copy.
+"""The benchmark workloads that chip_smoke.py and the port's bench.py drive,
+in the port's own copy.
 
 Copies of bench.py's scenario grid (HALVES, N_GOALS, N_FORCES, bench_seeds,
 bench_config), of __graft_entry__._small_cfg, of the JAX bench's fleet
 workload (tools/fleet_probe.py's fleet_cfg and fleet_scene, bench.py's
 fleet lanes, B, duration and replan cadence), of the closed-loop tests'
-configuration (tests/test_closed_loop.py's CFG) and of the adversarial
+configuration (tests/test_closed_loop.py's CFG), of config 3's fence and
+wind (bench.py's closed-loop smoke) and of the adversarial
 solver distribution (tools/stress_oracle_classify.py's stress_params, the
 empty slab of tests/test_solver_stress.py), so that neither the port nor
 chip_smoke.py imports those modules (their configs come from the JAX
@@ -142,6 +144,23 @@ def closed_loop_cfg():
             max_rounds=48,
         ),
     )
+
+
+def fence_points():
+    """BASELINE config 3's fence (tests/test_closed_loop.py's obstacle
+    scene, bench.py:383-387): points on a 0.1 m lattice in the plane
+    x = 1.5, y in [-3, 3), z in [0, 2.6), less its gap at y in (-0.2, 1.6)."""
+    ys = np.arange(-3, 3, 0.1)
+    zs = np.arange(0, 2.6, 0.1)
+    yy, zz = np.meshgrid(ys, zs)
+    pts = np.stack([np.full(yy.size, 1.5), yy.ravel(), zz.ravel()], -1)
+    return pts[~((pts[:, 1] > -0.2) & (pts[:, 1] < 1.6))]
+
+
+def wind(t):
+    """Config 3's time-varying wind (bench.py:389-390): 0.8 sin(0.5 t)
+    m/s^2 along x."""
+    return np.array([0.8 * np.sin(0.5 * t), 0.0, 0.0])
 
 
 # the adversarial solver distribution's start: hover at (0, 0, 1.2)

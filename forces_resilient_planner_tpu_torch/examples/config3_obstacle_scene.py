@@ -34,19 +34,6 @@ GOAL = [3.5, 0.0]
 DURATION = 7.0      # seconds flown
 
 
-def fence():
-    """The fence at x = 1.5 with its gap at y in (-0.2, 1.6)."""
-    ys = np.arange(-3, 3, 0.1)
-    zs = np.arange(0, 2.6, 0.1)
-    yy, zz = np.meshgrid(ys, zs)
-    pts = np.stack([np.full(yy.size, 1.5), yy.ravel(), zz.ravel()], -1)
-    return pts[~((pts[:, 1] > -0.2) & (pts[:, 1] < 1.6))]
-
-
-def wind(t):
-    return np.array([0.8 * np.sin(0.5 * t), 0.0, 0.0])   # time-varying
-
-
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda")
@@ -60,10 +47,11 @@ def main(argv=None):
     x0[2] = 1.2
     sim = QuadSim(C.model, x0.copy(), np.zeros(3))
     planner.on_odometry(x0)
-    planner.set_occupied(fence())
+    planner.set_occupied(workloads.fence_points())
 
     trace = run_closed_loop(planner, sim, GOAL, duration=DURATION,
-                            force_schedule=wind, record_plans=True)
+                            force_schedule=workloads.wind,
+                            record_plans=True)
     final = trace["pos"][-1]
     print("final position:", np.round(final, 3),
           "| solves:", planner.diag.solves,

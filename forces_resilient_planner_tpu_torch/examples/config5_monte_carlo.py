@@ -17,8 +17,9 @@ CPU ranks over gloo, solve each chunk's set of parallel/mesh.py::
 monte_carlo_sweep; rank 0 checkpoints the gathered chunk.
 
 The summary (aggregate and steady-state solves/s, resilience rate, exit-
-code fractions, iterations) is printed as one JSON line and written to
---out when given; the JAX example's MC_SWEEP.json is not touched.
+code fractions, iterations, the card's name and power limit) is printed
+as one JSON line and written to --out when given; the JAX example's
+MC_SWEEP.json is not touched.
 
   python -m forces_resilient_planner_tpu_torch.examples.config5_monte_carlo
   ... --chunks 4 --device cpu --goals 8              # a small CPU run
@@ -44,6 +45,7 @@ from forces_resilient_planner_tpu_torch.solver.forces_api import EXIT_NAMES
 from forces_resilient_planner_tpu_torch.utils.checkpoint import (
     SweepCheckpointer,
 )
+from forces_resilient_planner_tpu_torch.utils.measure import card_line
 
 ROOT = Path(__file__).resolve().parents[2]
 HALVES = np.array([[5.0, 5.0, 2.0]])
@@ -192,6 +194,7 @@ def main(argv=None):
             "chunk_batch": args.goals * args.forces,
             "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
                        else str(dev)),
+            "card": card_line(dev),
             "mode": "mesh" if args.mesh else "streamed",
             "steady_state_solves_per_s": steady,
         },

@@ -21,7 +21,7 @@ import torch
 from forces_resilient_planner_tpu_torch.engine import workloads
 from forces_resilient_planner_tpu_torch.ops import _build, ipm_kernel
 from forces_resilient_planner_tpu_torch.solver import ipm_lanes
-from forces_resilient_planner_tpu_torch.tools.parity_certificate import card_line
+from forces_resilient_planner_tpu_torch.utils.measure import card_line, cuda_ms
 
 PHASES = ("copy in", "dynamics", "residuals, errors", "RHS",
           "stage QP blocks", "Riccati factor", "backsolve",
@@ -70,7 +70,7 @@ def main() -> int:
                 ipm_kernel.launch(lib, ins, outs, cfg.model, cfg.solver,
                                   stream, max_lanes=lanes)
 
-            ms = chip_smoke.cuda_ms(run, 20)
+            ms = cuda_ms(run, 20)
             clocks = (ctypes.c_longlong * 16)()
             if lib.ipm_phase_clocks(clocks) != 0:
                 raise RuntimeError("cudaMemcpyFromSymbol failed")

@@ -23,7 +23,7 @@ import torch
 
 from forces_resilient_planner_tpu_torch.engine import workloads
 from forces_resilient_planner_tpu_torch.ops import _build, lqr_kernel
-from forces_resilient_planner_tpu_torch.tools.parity_certificate import card_line
+from forces_resilient_planner_tpu_torch.utils.measure import card_line, cuda_ms
 
 # csrc/lqr.cu's K4_CLOCK indices: the factors' (K5a has no prologue; its
 # phase 1 is the first copies and their wait) and the backsolves'
@@ -103,7 +103,7 @@ def main() -> int:
                                   torch.cuda.current_stream().cuda_stream,
                                   scalars)
 
-            ms = chip_smoke.cuda_ms(run, 20)
+            ms = cuda_ms(run, 20)
             cycles(lib)
             run()
             torch.cuda.synchronize()

@@ -39,7 +39,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -61,6 +60,7 @@ from forces_resilient_planner_tpu_torch.engine import (
 from forces_resilient_planner_tpu_torch.oracle import pool as oracle_pool
 from forces_resilient_planner_tpu_torch.solver import ipm_lanes
 from forces_resilient_planner_tpu_torch.solver.nlp import NLPParams
+from forces_resilient_planner_tpu_torch.utils.measure import card_line
 
 ROOT = Path(__file__).resolve().parents[2]
 BOX_SEEDS = (1000, 1001, 1002)   # the JAX bench's first timed seed sets
@@ -68,18 +68,6 @@ BOX_LANES_PER_SET = 8
 FENCE_B, FENCE_SEED, FENCE_LANES = 128, 42, 12
 TOL = 1e-3
 PIPE_B, PIPE_K, PIPE_M = 128, 64, 256
-
-
-def card_line(device) -> str:
-    """The card's name and power limit as nvidia-smi gives them, or the
-    CPU's label when the run is on the CPU."""
-    if torch.device(device).type != "cuda":
-        return "cpu (no card)"
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip().splitlines()[0]
 
 
 def pick_lanes(ec: np.ndarray, it: np.ndarray, n: int) -> np.ndarray:

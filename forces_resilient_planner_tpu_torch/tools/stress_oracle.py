@@ -55,9 +55,7 @@ from forces_resilient_planner_tpu_torch.engine import workloads
 from forces_resilient_planner_tpu_torch.oracle import cpu_oracle
 from forces_resilient_planner_tpu_torch.oracle import pool as oracle_pool
 from forces_resilient_planner_tpu_torch.solver import ipm_lanes
-from forces_resilient_planner_tpu_torch.tools.parity_certificate import (
-    card_line,
-)
+from forces_resilient_planner_tpu_torch.utils.measure import card_line
 
 ROOT = Path(__file__).resolve().parents[2]
 RESUME_DIR = ROOT / "_arch"

@@ -53,9 +53,10 @@ def config3(tmp_path_factory):
     planner = jplan.ResilientPlanner(JCFG, max_cloud=2048, dtype=jnp.float64)
     sim = jsim.QuadSim(JCFG.model, x0.copy(), np.zeros(3))
     planner.on_odometry(x0)
-    planner.set_occupied(ex3.fence())
+    planner.set_occupied(workloads.fence_points())
     trace = jsim.run_closed_loop(planner, sim, ex3.GOAL, duration=DURATION,
-                                 force_schedule=ex3.wind, record_plans=True)
+                                 force_schedule=workloads.wind,
+                                 record_plans=True)
     return got, trace, planner, out
 
 
