@@ -20,6 +20,7 @@ from forces_resilient_planner_tpu_torch.solver.problems import (
     hover_warm_start,
     lqr_warm_start_batch,
 )
+from forces_resilient_planner_tpu_torch.utils import trace
 
 
 class ScenarioSet(NamedTuple):
@@ -140,8 +141,9 @@ def solve_scenario_grid(
 ) -> SolveResult:
     """Expand the grid from its seeds on `device` and solve it there with
     the tiered lane-major IPM (scfg.tiers).  Batch-leading results."""
-    scen = make_scenarios(cfg, goals, forces, corridor_halves, x0=x0,
-                          dtype=dtype, device=device)
+    with trace.span("grid.expand"):
+        scen = make_scenarios(cfg, goals, forces, corridor_halves, x0=x0,
+                              dtype=dtype, device=device)
     return solve_scenarios(scen, cfg)
 
 

@@ -36,6 +36,7 @@ from forces_resilient_planner_tpu_torch.engine.commander import CmdStatus, Comma
 from forces_resilient_planner_tpu_torch.engine.pipeline import nmpc_step
 from forces_resilient_planner_tpu_torch.mapping import occ_grid as og
 from forces_resilient_planner_tpu_torch.search import kinodynamic as kd
+from forces_resilient_planner_tpu_torch.utils import trace
 from forces_resilient_planner_tpu_torch.utils.timing import Timers
 
 
@@ -380,11 +381,12 @@ class ResilientPlanner:
                 planner.tick_fsm(t); planner.tick_mpc(t); ...
 
         View in TensorBoard or chrome://tracing; prof.key_averages() sums
-        the time by operator and kernel."""
+        the time by operator and kernel.  The program's spans
+        (utils/trace.py) are annotated in it, over the work they issued."""
         acts = [torch.profiler.ProfilerActivity.CPU]
         if self.device.type == "cuda":
             acts.append(torch.profiler.ProfilerActivity.CUDA)
-        with torch.profiler.profile(
+        with trace.annotate(), torch.profiler.profile(
             activities=acts,
             on_trace_ready=torch.profiler.tensorboard_trace_handler(log_dir),
         ) as prof:

@@ -22,6 +22,8 @@ import time
 from pathlib import Path
 from typing import Callable, NamedTuple
 
+from forces_resilient_planner_tpu_torch.utils import trace
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("ipm_iteration.cu", "tube_stage.cu", "corridor.cu", "lqr.cu")
 BUILD_DIR = CSRC / "build"
@@ -89,25 +91,28 @@ def _paths(source: str):
 
 def build(*sources: str) -> dict[str, Built]:
     """Compile the given sources (default: all), one nvcc process each, all
-    started together; cached libraries are not rebuilt."""
+    started together; cached libraries are not rebuilt.  Each nvcc run is
+    the span ops.build.<source stem>, from its start until it is collected."""
     t0 = time.perf_counter()
     jobs = []
     for source in sources or SOURCES:
         src, so, log = _paths(source)
-        proc = tmp = None
+        proc = tmp = span = None
         if not so.exists():
             nvcc = find_nvcc()
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+            span = trace.span(f"ops.build.{Path(source).stem}").__enter__()
             proc = subprocess.Popen(
                 [nvcc, *_flags(source), "-o", str(tmp), str(src)],
                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
             )
-        jobs.append((source, so, log, tmp, proc))
+        jobs.append((source, so, log, tmp, proc, span))
     out, failed = {}, []
-    for source, so, log, tmp, proc in jobs:
+    for source, so, log, tmp, proc, span in jobs:
         if proc is not None:
             stdout, stderr = proc.communicate()
+            span.__exit__(None, None, None)
             if proc.returncode != 0:
                 failed.append(f"{source}: nvcc exit code {proc.returncode}:\n"
                               f"{stdout}\n{stderr}")
@@ -144,10 +149,11 @@ def register_prebuilt(source: str, so_path) -> None:
 def load(source: str, bind: Callable[[ctypes.CDLL], None]) -> ctypes.CDLL:
     """The library of `source`, bound by `bind` (which sets each entry
     point's argtypes/restype): the registered prebuilt one, else built at
-    first use in this process."""
+    first use in this process (the span ops.load.<source stem>)."""
     if source not in _libs:
-        path = _prebuilt.get(source) or build(source)[source].path
-        lib = ctypes.CDLL(str(path))
-        bind(lib)
-        _libs[source] = lib
+        with trace.span(f"ops.load.{Path(source).stem}"):
+            path = _prebuilt.get(source) or build(source)[source].path
+            lib = ctypes.CDLL(str(path))
+            bind(lib)
+            _libs[source] = lib
     return _libs[source]

@@ -40,6 +40,7 @@ from forces_resilient_planner_tpu_torch.config import (
     PlannerConfig,
 )
 from forces_resilient_planner_tpu_torch.solver import ipm_lanes, nlp
+from forces_resilient_planner_tpu_torch.utils import trace
 
 # dimensions (setup.m:30-40, FORCESNLPsolver_normal.h:153-168)
 N = 20
@@ -225,34 +226,36 @@ class ForcesSolver:
     def solve(
         self, params: ForcesParams
     ) -> Tuple[Dict[str, np.ndarray], int, ForcesInfo]:
-        if self._pending_weights is not None:
-            set_stage_weights(params, *self._pending_weights)
-            self._pending_weights = None
-        mcfg, scfg = self.cfg.model, self.cfg.solver
-        Z0, p = unpack_params(
-            params, self.cfg, final=(self.profile == "final"),
-            dtype=self.dtype, device=self.device,
-        )
-        t0 = time.perf_counter()
-        res = ipm_lanes.solve_batch_lanes_tiered(
-            Z0[None], ipm_lanes._map_params(lambda a: a[None], p), mcfg, scfg
-        )
-        Zt = res.Z[0]
-        Z = Zt.cpu().double().numpy()
-        dt = time.perf_counter() - t0
+        with trace.span("api"):
+            if self._pending_weights is not None:
+                set_stage_weights(params, *self._pending_weights)
+                self._pending_weights = None
+            mcfg, scfg = self.cfg.model, self.cfg.solver
+            Z0, p = unpack_params(
+                params, self.cfg, final=(self.profile == "final"),
+                dtype=self.dtype, device=self.device,
+            )
+            t0 = time.perf_counter()
+            res = ipm_lanes.solve_batch_lanes_tiered(
+                Z0[None], ipm_lanes._map_params(lambda a: a[None], p), mcfg,
+                scfg,
+            )
+            Zt = res.Z[0]
+            Z = Zt.cpu().double().numpy()
+            dt = time.perf_counter() - t0
 
-        out = {f"x{i + 1:02d}": Z[i] for i in range(N)}
-        H = nlp.stage_hessians(p.weights, mcfg, self.dtype)
-        c = nlp.dynamics_residuals(Zt, p, mcfg)
-        lb, ub = nlp.variable_bounds(mcfg, self.dtype, device=self.device)
-        g = nlp.inequality_residuals(Zt, p, lb, ub, scfg.corridor_slack)
-        info = ForcesInfo(
-            it=int(res.iters[0]),
-            solvetime=dt,
-            fevalstime=0.0,
-            res_eq=float(c.abs().max()),
-            res_ineq=float(g.clamp(min=0.0).max()),
-            rdgap=float(res.kkt_error[0]),
-            pobj=float(nlp.cost_value(Zt, p, H)),
-        )
-        return out, int(res.exit_code[0]), info
+            out = {f"x{i + 1:02d}": Z[i] for i in range(N)}
+            H = nlp.stage_hessians(p.weights, mcfg, self.dtype)
+            c = nlp.dynamics_residuals(Zt, p, mcfg)
+            lb, ub = nlp.variable_bounds(mcfg, self.dtype, device=self.device)
+            g = nlp.inequality_residuals(Zt, p, lb, ub, scfg.corridor_slack)
+            info = ForcesInfo(
+                it=int(res.iters[0]),
+                solvetime=dt,
+                fevalstime=0.0,
+                res_eq=float(c.abs().max()),
+                res_ineq=float(g.clamp(min=0.0).max()),
+                rdgap=float(res.kkt_error[0]),
+                pobj=float(nlp.cost_value(Zt, p, H)),
+            )
+            return out, int(res.exit_code[0]), info

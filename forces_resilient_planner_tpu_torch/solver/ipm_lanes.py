@@ -32,6 +32,7 @@ from forces_resilient_planner_tpu_torch.ops import lqr_kernel
 from forces_resilient_planner_tpu_torch.solver import nlp
 from forces_resilient_planner_tpu_torch.solver.ipm import SolveResult
 from forces_resilient_planner_tpu_torch.solver.nlp import NLPParams, NXB
+from forces_resilient_planner_tpu_torch.utils import trace
 from forces_resilient_planner_tpu_torch.utils.lanes import lane_sum, sum_dim
 
 # host-loop iterations stepped by _run_lanes, over all calls (a run's
@@ -402,10 +403,13 @@ def _run_lanes(st0, params: NLPParams, mcfg: ModelConfig, scfg: SolverConfig,
             return lane_step(st, params, mcfg, scfg, max_iters)
 
     st = st0
-    while bool(((~st[6]) & (st[5] < max_iters)).any()):
+    while True:
+        with trace.span("solver.read"):
+            more = bool(((~st[6]) & (st[5] < max_iters)).any())
+        if not more:
+            return st
         st = step(st)
         STEPS += 1
-    return st
 
 
 def solve_lanes(Z0, params: NLPParams, mcfg: ModelConfig,
@@ -466,12 +470,13 @@ def solve_lanes_tiered(Z0, params: NLPParams, mcfg: ModelConfig,
     st = _run_lanes(
         _init_state(Z0, params, mcfg, scfg), params, mcfg, scfg, phase1_iters
     )
-    idx = _compact_order(st[6])[:tail_lanes]
-    sub_st = tuple(_take_lanes(a, idx) for a in st)
-    sub_params = _map_params(lambda a: _take_lanes(a, idx), params)
-    sub_st = _run_lanes(sub_st, sub_params, mcfg, scfg, scfg.max_iters)
-    merged = tuple(_put_lanes(a, idx, b) for a, b in zip(st, sub_st))
-    merged = _run_lanes(merged, params, mcfg, scfg, scfg.max_iters)
+    with trace.span("solver.tail"):
+        idx = _compact_order(st[6])[:tail_lanes]
+        sub_st = tuple(_take_lanes(a, idx) for a in st)
+        sub_params = _map_params(lambda a: _take_lanes(a, idx), params)
+        sub_st = _run_lanes(sub_st, sub_params, mcfg, scfg, scfg.max_iters)
+        merged = tuple(_put_lanes(a, idx, b) for a, b in zip(st, sub_st))
+        merged = _run_lanes(merged, params, mcfg, scfg, scfg.max_iters)
     return _state_to_result(merged, params, mcfg, scfg)
 
 
@@ -507,8 +512,9 @@ def solve_lanes_multitier(Z0, params: NLPParams, mcfg: ModelConfig,
             sub_st = level(sub_st, sub_params, i + 1)
         return tuple(_put_lanes(a, idx, b) for a, b in zip(st, sub_st))
 
-    merged = level(st, params, 0)
-    merged = _run_lanes(merged, params, mcfg, scfg, scfg.max_iters)
+    with trace.span("solver.tail"):
+        merged = level(st, params, 0)
+        merged = _run_lanes(merged, params, mcfg, scfg, scfg.max_iters)
     return _state_to_result(merged, params, mcfg, scfg)
 
 
@@ -525,17 +531,18 @@ def solve_batch_lanes_tiered(Z0, params: NLPParams, mcfg: ModelConfig,
     otherwise scfg.tier_phase1 / scfg.tier_frac select the two-phase solver
     (tier_phase1 <= 0 = single phase)."""
     B = Z0.shape[0]
-    if scfg.tiers:
-        schedule = tuple(
-            (cap, _round_lanes(B, frac)) for cap, frac in scfg.tiers
-        )
-        return solve_lanes_multitier(
+    with trace.span("solver"):
+        if scfg.tiers:
+            schedule = tuple(
+                (cap, _round_lanes(B, frac)) for cap, frac in scfg.tiers
+            )
+            return solve_lanes_multitier(
+                Z0.movedim(0, -1).contiguous(), lanes_params(params), mcfg,
+                scfg, schedule,
+            )
+        if scfg.tier_phase1 <= 0:
+            return solve_batch_lanes(Z0, params, mcfg, scfg)
+        return solve_lanes_tiered(
             Z0.movedim(0, -1).contiguous(), lanes_params(params), mcfg, scfg,
-            schedule,
+            scfg.tier_phase1, _round_lanes(B, scfg.tier_frac),
         )
-    if scfg.tier_phase1 <= 0:
-        return solve_batch_lanes(Z0, params, mcfg, scfg)
-    return solve_lanes_tiered(
-        Z0.movedim(0, -1).contiguous(), lanes_params(params), mcfg, scfg,
-        scfg.tier_phase1, _round_lanes(B, scfg.tier_frac),
-    )

@@ -77,6 +77,7 @@ PORT_MODULES = [
     "forces_resilient_planner_tpu_torch.examples.config6_fleet",
     "forces_resilient_planner_tpu_torch.bench",
     "forces_resilient_planner_tpu_torch.utils.measure",
+    "forces_resilient_planner_tpu_torch.utils.trace",
 ]
 
 
