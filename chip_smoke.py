@@ -12,8 +12,9 @@ CUDA kernel against its plain PyTorch version on the card:
   slice 2, the batched full NMPC step: engine/pipeline_batch.py::
   nmpc_step_batched at DEFAULT_CONFIG on 4096 robots (N = 20, K = 64 path
   samples, M = 256 obstacles, each robot its own cloud, force, time offset
-  and profile), with the tube kernel ops/csrc/tube_stage.cu (K2), the
-  corridor kernel ops/csrc/corridor.cu (K3) and K1;
+  and profile), with the tube kernel ops/csrc/tube_stage.cu (K2), the tube
+  chain ops/csrc/tube_chain.cu after it, the corridor kernel ops/csrc/
+  corridor.cu (K3) and K1;
   slice 3, the Mehrotra predictor-corrector (SolverConfig.
   predictor_corrector=True) on the grid and the step, every iteration one
   Riccati factor K4a and two backsolves K4b of ops/csrc/lqr.cu, and the
@@ -24,39 +25,43 @@ CUDA kernel against its plain PyTorch version on the card:
   batched kinodynamic search on every replan, nmpc_step_batched and the
   plant every tick) and one robot's planner (engine/planner.py::
   ResilientPlanner with engine/simulator.py::run_closed_loop), both
-  through K1, K2 and K3;
+  through K1, K2, the tube chain and K3;
   slice 5, the surfaces and scale-out: the FORCES API (solver/
   forces_api.py, B = 1 of the lane-major solver through K1, and K4 under a
   predictor-corrector configuration), the sharded solve of parallel/
   mesh.py in a world of one NCCL rank, BASELINE config 5's 102,400-
   scenario sweep through the ported example, interrupted after 8
   checkpointed chunks and resumed in a fresh process, and entry.py's
-  entry() and dryrun_multichip(1) (K1, K2, K3);
+  entry() and dryrun_multichip(1) (K1, K2, the chain, K3);
   slice 6, the last surfaces: the adversarial stress batch (engine/
   workloads.py::stress_params) at f32 and f64 through K1, a reduced
   parity certificate against the independent SLSQP oracle (tools/
   parity_certificate.py, the oracle in a pool of CPU processes), the
   shipped solver (utils/aot.py) loaded in a process without nvcc, and the
-  BASELINE examples 1-4 and 6 (K1, K2, K3);
+  BASELINE examples 1-4 and 6 (K1, K2, the chain, K3);
   slice 7, the corridor decomposition on every cloud and option: K3's
   gathered route (ops/csrc/corridor.cu: clouds past a CTA's shared memory,
   past 65,535 obstacles, and CorridorConfig.max_active_obstacles below the
   cloud size) against its plain version, and the f64 single-robot planner
-  at max_cloud = 8192 on BASELINE config 3's fence loop (K1, K2, K3);
+  at max_cloud = 8192 on BASELINE config 3's fence loop (K1, K2, the
+  chain, K3);
   the headline bench: forces_resilient_planner_tpu_torch/bench.py, the
   repo's bench.py program on the card (the grid, the B = 1 solve and step,
   the batched step, config 3's closed loop, the fleet), run as a user runs
-  it, in a process of its own (K1, K2, K3).
+  it, in a process of its own (K1, K2, the chain, K3).
 
 Phases, one line each (any failure exits non-zero and nothing after it is
 printed):
 
   0. device: needs torch.cuda; prints the card's name and power limit
-  1. build: compiles the four kernel sources with nvcc, all at once;
+  1. build: compiles the kernel sources with nvcc, all at once;
      prints build seconds and the ptxas register / spill report of each
      entry function, K1's lanes and shared memory per CTA, K2's stage lanes,
-     threads and shared memory per CTA (a team of 9 threads per lane) and
-     K3's route, lanes per stage, threads, shared memory per CTA and
+     threads and shared memory per CTA (a team of 9 threads per lane), the
+     tube chain's robots, threads and shared memory per CTA at N = 20 (a
+     team of 9 threads per robot, fixed in its source) and K3's route,
+     lanes per stage,
+     threads, shared memory per CTA and
      scratch at M = 256, 1024, 2048, 8192, 16,384 and 70,000 and at M = 2048
      with k = 64, K4a's, K4b's, K5a's and K5b's lanes, threads and shared
      memory per CTA (a warp per lane)
@@ -84,23 +89,29 @@ printed):
      |d| <= 1e-10 (1 + |ref|); f32 max |d| Phi <= 2e-5, Mp <= 2e-6,
      Qd <= 1e-6, Q1 <= 1e-6; and with a gain other than the config's
      (1.3 K plus a seeded perturbation) on the main path's stage lanes at
-     f64, the same 1e-10 bar
+     f64, the same 1e-10 bar; the tube chain vs its plain version on K2's
+     outputs of the main path's stage lanes (B = 4096 robots and the first
+     alone, N = 20) at f64 and f32, and at f32 with one stage's Qd made
+     NaN: E and Q2 NaN exactly where the plain chain has it, elsewhere f64
+     |d| <= 1e-10 (1 + |ref|), f32 max |d| <= 1e-6; the share of entries
+     bit-equal to the plain chain's printed
   6. K3 vs its plain version: f64, A and b within 1e-9 on every row, on
      generic random inputs at B = 256, M = 256 and at B = 64, M = 2048, and
      on the main path's own segments and clouds (B = 4096, M = 256); f32
      at the main path's inputs, the share of (robot, stage) whose rows
      match within 1e-4 (printed, not barred: argmin ties flip planes at f32)
   7. slice 2 main path at f32, on the easy workload and on one where every
-     4th robot has drifted from its plan: K2 and K3 launched once each, K1
-     once per host-loop step; every output finite on the accepted robots;
-     the f64 certificate on the CPU (no obstacle inside any tightened
-     polytope, accepted trajectories within 1e-4 of their corridors, the
-     card's NLP of robots 0-63 re-solved by the plain solver at f64 within
+     4th robot has drifted from its plan: K2, the tube chain and K3
+     launched once each, K1 once per host-loop step; every output finite
+     on the accepted robots; the f64 certificate on the CPU (no obstacle
+     inside any tightened polytope, accepted trajectories within 1e-4 of
+     their corridors, the card's NLP of robots 0-63 re-solved by the plain solver at f64 within
      1e-3 in u); the step through the plain versions on the card, its
      exit-code agreement printed and its solved fraction within 0.005
-  8. slice 2 times: K2 and K3 ms per call against their plain versions,
-     each beside its bound and the share of it (K3's bound from the work
-     this run's data needs: ops/corridor_kernel.py::decompose_stages_work);
+  8. slice 2 times: K2, the tube chain and K3 ms per call against their
+     plain versions, each beside its bound and the share of it (K3's
+     bound from the work this run's data needs: ops/corridor_kernel.py::
+     decompose_stages_work);
      K3 at M = CorridorConfig.max_obstacles (2048), its geometry there;
      nmpc_step_batched ms per call and steps/s over 5 pre-staged fresh
      input sets of each workload; engine/pipeline.py::nmpc_step at B = 1,
@@ -141,13 +152,15 @@ printed):
      f64 on the card and, for lanes 0-31, on the CPU, with identical
      status, n_edges, edge_inputs and iterations; then B = 128 for 8 s:
      collided 0, every lane exactly one outcome, reached >= 0.95, states
-     and controls finite on the lanes not frozen, K2 and K3 launched once a
-     tick and K1 once a host-loop step; the K1, K2 and K3 calls of ticks
+     and controls finite on the lanes not frozen, K2, the tube chain and K3
+     launched once a tick and K1 once a host-loop step; the K1, K2, chain
+     and K3 calls of ticks
      20 (a replan) and 25, their arguments recorded during the run (B = 128,
      the 2048-point cloud, shrink_iters 8, max_obs_planes 12), each held
      against its plain version at f64 on the same values with the bars of
-     phases 2, 5 and 6 (K1: identical it/done, 1e-9 (1 + |ref|); K2:
-     1e-10 (1 + |ref|); K3: 1e-9 on every row); printed: the outcomes, the
+     phases 2, 5 and 6 (K1: identical it/done, 1e-9 (1 + |ref|); K2 and
+     the chain: 1e-10 (1 + |ref|), the chain's NaN alike; K3: 1e-9 on every
+     row); printed: the outcomes, the
      tick exit-code fractions, the searches, wall seconds and the realtime
      factor B x 8 s / wall (the per-tick trace on); then a 2 s pass with a
      sync around each search, step and plant call (ms per tick of each)
@@ -156,8 +169,9 @@ printed):
      hover-to-goal (4 s), wind-step (5 s) and fence (7 s, obstacle scene)
      scenarios with that file's bars (final position within 0.4 m / 0.5 m,
      failures <= solves // 4; fence: final x > 2.8 and inside the gap band
-     while at the fence line), K2 and K3 once a solve, K1 once a host-loop
-     step; in the fence scene the K1, K2 and K3 calls of every 4th solve
+     while at the fence line), K2, the tube chain and K3 once a solve, K1
+     once a host-loop step; in the fence scene the K1, K2, chain and K3
+     calls of every 4th solve
      (B = 1, M = 2048) held against their plain versions at f64 with phase
      12's bars, at least one of them with a non-empty cloud; then at
      DEFAULT_CONFIG (its 400 x 400 x 60 map) 3 s hover to goal: the MPC
@@ -190,7 +204,8 @@ printed):
      K1 once per host-loop step); printed: solves/s and steady state,
      mean / p99 / max iterations, exit-code fractions. (d) entry()'s step
      on the card: finite, its exit code equal to the same call on the CPU,
-     K2 and K3 launched once and K1 once per host-loop step; then
+     K2, the tube chain and K3 launched once and K1 once per host-loop
+     step; then
      dryrun_multichip(1) (one spawned NCCL rank) passing its shape check
   15. slice 6 at DEFAULT_CONFIG: (a) the stress batch, B = 512 (seed 123,
      the bench tiers), at f64 and f32 through K1: K1 once per host-loop
@@ -211,9 +226,10 @@ printed):
      its K1 launches equal to this process's; its wall against phase 1's
      build seconds. (d) the examples at their defaults (config 1 also with
      --oracle, config 6 at FLEET_EXAMPLE_ARGS): each returns and prints its
-     line; K1 once per host-loop step; config 1 exit 1 (oracle |du| <=
-     1e-3), config 2 exit 1 with K2 = K3 = 1, config 3 K2 = K3 = solves,
-     config 4 solved >= 0.999, config 6 no collision, K2 = K3 = ticks
+     line; K1 once per host-loop step, the tube chain as often as K2;
+     config 1 exit 1 (oracle |du| <= 1e-3), config 2 exit 1 with K2 = K3 =
+     1, config 3 K2 = K3 = solves, config 4 solved >= 0.999, config 6 no
+     collision, K2 = K3 = ticks
   16. slice 7: K3's gathered route on phase 6's random segments at each of
      GATHERED_CASES (f32 B = 64, M = 16,384; f64 B = 64, M = 8,192; B = 8,
      M = 70,000; k = 64 at M = 256 and 2048 with B = 512), the route checked
@@ -225,7 +241,8 @@ printed):
      (examples/config3_obstacle_scene.py: the fence, its wind, 7 s) with
      the planner at f64 and max_cloud = 8192: final position within 0.5 m
      of the goal, no trace point in an occupied voxel, K3 once a solve by
-     the gathered route, K1 once a host-loop step; its MPC tick p50 / p99
+     the gathered route, K2 and the tube chain once a solve, K1 once a
+     host-loop step; its MPC tick p50 / p99
   17. the headline bench: python3 -m forces_resilient_planner_tpu_torch.
      bench in a child process, which must exit 0 within BENCH_TIMEOUT
      seconds; its [bench] lines printed; its last stdout line one JSON
@@ -240,15 +257,17 @@ Every line is prefixed with the script's elapsed seconds.  The
 move (inputs read once, outputs written once) over the H100's 3.35 TB/s
 and its operations over 67 TFLOP/s (f32, no tensor cores), computed from
 this run's inputs (K2: the doublings its lanes take; K3: the sets of the
-rounds that run on its data); library_ms is null for all seven kernels (no single
-PyTorch call computes any of them).  K3 has two entries, one per route:
+rounds that run on its data; the tube chain: Qd, Q1 and Mp's rows 0-2
+read, E and Q2 written); library_ms is null for all eight kernels (no
+single PyTorch call computes any of them).  K3 has two entries, one per route:
 "corridor" (the shared route, phases 6-8) and "corridor_gathered" (phase
 16: launches on the f64 planner's run, the rest at B = 64, M = 16,384,
 f32).  max_abs_err is, for every kernel, the
 f32 kernel against its plain version on the main path's inputs at the
-main path's shape (K1: the grid's initial IPM state; K2: the step's stage lanes; K3:
-the step's segments and clouds; K4: the predictor-corrector grid's initial
-calls; K5: the random blocks of phase 9).
+main path's shape (K1: the grid's initial IPM state; K2: the step's stage
+lanes; the tube chain: K2's outputs there; K3: the step's segments and
+clouds; K4: the predictor-corrector grid's initial calls; K5: the random
+blocks of phase 9).
 
 K1's, K2's and K3's entries also carry launches_phase15, their launches
 on phase 15's paths.
@@ -548,6 +567,7 @@ def plain_routes():
     with contextlib.ExitStack() as stack:
         for module, name, plain in (
             (tube_kernel, "tube_stage_lanes", tube_kernel.tube_stage_reference),
+            (tube_kernel, "tube_chain_lanes", tube_kernel.tube_chain_reference),
             (corridor_kernel, "decompose_stages_lanes",
              corridor_kernel.decompose_stages_reference),
             (ipm_kernel, "ipm_iteration_fused",
@@ -601,6 +621,49 @@ def tube_check(x, u, device, K=None,
     return worst32, "; ".join(msg)
 
 
+def chain_check(Qd, Mp, Q1, tcfg, label):
+    """The tube chain vs its plain version on K2's outputs Qd, Mp (B, N, 9,
+    9), Q1 (B, N, 3, 3) at their dtype with the tube configuration tcfg:
+    NaN in E and Q2 exactly where the
+    plain chain has it, and elsewhere f64 |d| <= 1e-10 (1 + |ref|), f32
+    max |d| <= 1e-6 (tests/test_torch_tube.py's bars for the source).
+    Returns the max relative (f64) or absolute (f32) deviation, a report
+    and the kernel's NaN entries."""
+    f64 = Q1.dtype == torch.float64
+    args = [t.contiguous() for t in (Qd, Mp, Q1)]
+    ref = tube_kernel.tube_chain_reference(*args, tcfg)
+    got = tube_kernel.tube_chain_lanes(*args, tcfg)
+    torch.cuda.synchronize()
+    worst, msg, nans = 0.0, [], 0
+    for name, g, r in zip(("E", "Q2"), got, ref):
+        if not torch.equal(g.isnan(), r.isnan()):
+            fail(f"the chain {label}: {name} NaN at {int(g.isnan().sum())} "
+                 f"entries, the plain chain at {int(r.isnan().sum())}")
+        d = torch.where(g == r, torch.zeros_like(g), (g - r).abs())
+        d = d.nan_to_num(nan=0.0)
+        err = (d / (1 + r.abs().nan_to_num(nan=0.0))).max().item() if f64 \
+            else d.max().item()
+        if not err <= (1e-10 if f64 else 1e-6):
+            fail(f"the chain {label}: {name} max {'rel' if f64 else 'abs'} "
+                 f"{err:.3e} > {1e-10 if f64 else 1e-6}")
+        worst = max(worst, err)
+        nans += int(g.isnan().sum())
+        same = ((g == r) | (g.isnan() & r.isnan())).double().mean().item()
+        msg.append(f"{name} {'rel' if f64 else 'abs'} {err:.2e}, "
+                   f"{int(g.isnan().sum())} NaN, bit-equal {same:.6f}")
+    return worst, "; ".join(msg), nans
+
+
+def chain_bound(Qd, Mp, Q1):
+    """utils/measure.py::bound of the tube chain on Qd, Mp (B, N, 9, 9), Q1
+    (B, N, 3, 3): Qd, Q1 and Mp's rows 0-2 read, E and Q2 written, over
+    tube_kernel.tube_chain_operations."""
+    B, N = Q1.shape[0], Q1.shape[1]
+    nbytes = (tensor_bytes(Qd, Q1) + 2 * Q1.numel() * Q1.element_size()
+              + Mp.element_size() * B * N * 27)
+    return bound(nbytes, tube_kernel.tube_chain_operations(B, N))
+
+
 def random_segments(B, N, M, seed):
     """Generic random stage segments and clouds (the inputs of
     tools/kernel_parity_debug.py:86-93)."""
@@ -652,7 +715,7 @@ def corridor_f64(args, label, phase=6):
 def reset_counts():
     """Every kernel's launch count and the host-loop step count to 0."""
     torch.cuda.synchronize()
-    tube_kernel.LAUNCHES = ipm_kernel.LAUNCHES = 0
+    tube_kernel.LAUNCHES = tube_kernel.CHAIN_LAUNCHES = ipm_kernel.LAUNCHES = 0
     for name in corridor_kernel.LAUNCHES:
         corridor_kernel.LAUNCHES[name] = 0
     for name in lqr_kernel.LAUNCHES:
@@ -661,11 +724,13 @@ def reset_counts():
 
 
 def launch_counts():
-    """(K1, K2, K3, K4a, K4b) launches (K3: both routes)."""
+    """(K1, K2, K3, K4a, K4b, the tube chain) launches (K3: both
+    routes)."""
     return (ipm_kernel.LAUNCHES, tube_kernel.LAUNCHES,
             sum(corridor_kernel.LAUNCHES.values()),
             lqr_kernel.LAUNCHES["lqr_factor_fused"],
-            lqr_kernel.LAUNCHES["lqr_backsolve_fused"])
+            lqr_kernel.LAUNCHES["lqr_backsolve_fused"],
+            tube_kernel.CHAIN_LAUNCHES)
 
 
 def solver_launches_ok(counts, steps, scfg) -> bool:
@@ -685,8 +750,8 @@ def check_grid(dev, cfg, phase, solved_min=None):
     lanes 0-63 re-solved at f64 on the CPU (at most one of the card's
     solved lanes missing, u within 1e-3), and the same solve through the
     plain versions on the card: solved fraction within 0.005, exit codes
-    agreeing on >= 99.5% of lanes.  Returns the launch counts (K1, K2, K3,
-    K4a, K4b)."""
+    agreeing on >= 99.5% of lanes.  Returns the launch counts
+    (launch_counts())."""
     goals, forces = workloads.bench_seeds(1)
     reset_counts()
     res = batch.solve_scenario_grid(cfg, goals, forces, workloads.HALVES,
@@ -755,20 +820,20 @@ def check_step(inputs, dev, label, cfg=DEFAULT_CONFIG, phase=7,
     audit, and the same step through the plain versions on the card, its
     solved fraction within 0.005 and, when agree_min is given, its exit
     codes agreeing on at least that share of robots.  Returns the launch
-    counts (K1, K2, K3, K4a, K4b)."""
+    counts (launch_counts())."""
     B = inputs["mpc_output"].shape[0]
     reset_counts()
     res = step(inputs, cfg)
     torch.cuda.synchronize()
     counts = launch_counts()
-    l1, l2, l3, l4a, l4b = counts
+    l1, l2, l3, l4a, l4b, lc = counts
     steps = ipm_lanes.STEPS
     if "jax" in sys.modules:
         fail("jax was imported")
-    if not (l2 == 1 and l3 == 1 and solver_launches_ok(counts, steps,
+    if not (l2 == lc == l3 == 1 and solver_launches_ok(counts, steps,
                                                        cfg.solver)):
-        fail(f"launches: K2 {l2}, K3 {l3} (want 1 each), K1 {l1}, K4a {l4a}, "
-             f"K4b {l4b} vs host-loop steps {steps}")
+        fail(f"launches: K2 {l2}, the chain {lc}, K3 {l3} (want 1 each), "
+             f"K1 {l1}, K4a {l4a}, K4b {l4b} vs host-loop steps {steps}")
     ec = res.exit_code.cpu()
     acc = ec == 1
     solved = acc.double().mean().item()
@@ -785,8 +850,8 @@ def check_step(inputs, dev, label, cfg=DEFAULT_CONFIG, phase=7,
     solved64 = int(acc[:64].sum())
     codes = {int(c): int((ec == c).sum()) for c in ec.unique()}
     say(f"phase {phase} main path nmpc_step_batched B={B} f32{label}: solved "
-        f"{solved:.6f}, exit codes {codes}, launches K2 {l2} K3 {l3} K1 {l1} "
-        f"K4a {l4a} K4b {l4b}, host-loop steps {steps}, mean iters "
+        f"{solved:.6f}, exit codes {codes}, launches K2 {l2} chain {lc} K3 "
+        f"{l3} K1 {l1} K4a {l4a} K4b {l4b}, host-loop steps {steps}, mean iters "
         f"{res.iters.double().mean().item():.3f}; f64 audit: max "
         f"obstacle penetration {pen} m ({n_pen} stages), max accepted "
         f"corridor violation {viol:.3e}, re-solve of robots 0-63 max |du| "
@@ -850,7 +915,8 @@ def one_robot_latency(cfg, label, M, dev, card, calls=30, phase=8):
 
 
 def run_slice2(dev, card):
-    """Phases 5-8; returns the {"kernels"} entries of K2 and K3."""
+    """Phases 5-8; returns the {"kernels"} entries of K2, the tube chain
+    and K3."""
     cfg = DEFAULT_CONFIG
     N, B = cfg.model.N, STEP_B
     f32 = torch.float32
@@ -881,6 +947,31 @@ def run_slice2(dev, card):
     say(f"phase 5 K2 vs plain L={B * N}, the main path's stage lanes, an "
         f"explicit gain 1.3 K + N(0, 0.05): {msg}; Phi moved {moved:.3e} "
         "from the config gain's")
+    # the tube chain on K2's outputs there, B robots of N stages; at f32
+    # also with one stage's Qd made NaN
+    for dtype in (torch.float64, torch.float32):
+        Qd, Mp, _, Q1 = tube_kernel.tube_stage_lanes(
+            torch.as_tensor(Z[:, 8:17], dtype=dtype, device=dev),
+            torch.as_tensor(Z[:, 0:4], dtype=dtype, device=dev),
+            cfg.model, cfg.tube)
+        chain_args = (Qd.reshape(B, N, 9, 9), Mp.reshape(B, N, 9, 9),
+                      Q1.reshape(B, N, 3, 3))
+        for Bc in (1, B):                  # errc: B robots' f32
+            errc, msg, _ = chain_check(*(a[:Bc] for a in chain_args),
+                                       cfg.tube, str(dtype)[6:])
+            say(f"phase 5 the tube chain vs plain {str(dtype)[6:]} B={Bc} "
+                f"N={N}, on K2's outputs of the main path's stage lanes: {msg} "
+                f"(bar {'1e-10 (1+|ref|)' if dtype == torch.float64 else '1e-6'}"
+                ", NaN alike)")
+    Qd_nan = chain_args[0].clone()
+    Qd_nan[5, 8, 0, 0] = float("nan")
+    _, msg, nans = chain_check(Qd_nan, *chain_args[1:], cfg.tube,
+                               "a NaN stage")
+    if nans == 0:
+        fail("the chain with a NaN stage: no NaN in its outputs")
+    say(f"phase 5 the tube chain vs plain float32 B={B} N={N}, robot 5's "
+        f"stage 8 Qd NaN: {msg}, NaN where the plain chain has it")
+    del Qd, Mp, Q1, Qd_nan
 
     # ---- phase 6: K3 vs plain ---------------------------------------------
     for Bc, M in ((256, 256), (64, 2048)):
@@ -900,7 +991,7 @@ def run_slice2(dev, card):
     del in64
 
     # ---- phase 7: the slice-2 main path -----------------------------------
-    _, l2, l3, _, _ = check_step(inputs, dev, "")
+    _, l2, l3, _, _, lc = check_step(inputs, dev, "")
     check_step(step_inputs(2, B, f32, dev, drift=True), dev,
                ", every 4th robot drifted")
 
@@ -911,6 +1002,11 @@ def run_slice2(dev, card):
     targs = (x, u, cfg.model, cfg.tube)
     ms2 = cuda_ms(lambda: tube_kernel.tube_stage_lanes(*targs), 10)
     ms2p = cuda_ms(lambda: tube_kernel.tube_stage_reference(*targs), 3)
+    msc = cuda_ms(lambda: tube_kernel.tube_chain_lanes(*chain_args,
+                                                       cfg.tube), 10)
+    mscp = cuda_ms(lambda: tube_kernel.tube_chain_reference(*chain_args,
+                                                            cfg.tube), 3)
+    bc = chain_bound(*chain_args)
     cargs = (*args3, cfg.corridor, cfg.model.nh)
     ms3 = cuda_ms(lambda: corridor_kernel.decompose_stages_lanes(*cargs), 5)
     ms3p = cuda_ms(lambda: corridor_kernel.decompose_stages_reference(*cargs),
@@ -926,6 +1022,9 @@ def run_slice2(dev, card):
     say(f"phase 8 kernels f32 [{card}]: K2 {ms2:.3f} ms vs plain {ms2p:.3f} "
         f"ms at L={B * N}, bound {b2[0]:.4f} ms by {b2[1]} "
         f"({1e-9 * ops2:.3f} GFLOP), {100 * b2[0] / ms2:.2f}% of the bound; "
+        f"the tube chain {msc:.4f} ms vs plain {mscp:.3f} ms at B={B} N={N}, "
+        f"bound {bc[0]:.4f} ms by {bc[1]}, {100 * bc[0] / msc:.2f}% of the "
+        "bound; "
         f"K3 {ms3:.3f} ms vs plain {ms3p:.3f} ms at B={B} N={N} M={STEP_M}, "
         f"bound {b3[0]:.4f} ms by {b3[1]} ({1e-9 * ops3:.4f} GFLOP of work "
         f"{work3}), {100 * b3[0] / ms3:.2f}% of the bound")
@@ -955,6 +1054,11 @@ def run_slice2(dev, card):
          "replaces": "forces_resilient_planner_tpu/ops/tube_pallas.py:65",
          "launches": l2, "max_abs_err": err2, "ms": ms2, "plain_ms": ms2p,
          "bound_ms": b2[0], "bound_by": b2[1], "library_ms": None},
+        {"name": "tube_chain", "route": "cuda", "source": CSRC + "tube_chain.cu",
+         "replaces": "forces_resilient_planner_tpu/tube/lyapunov.py:399-420 "
+                     "(jnp, fused by XLA)",
+         "launches": lc, "max_abs_err": errc, "ms": msc, "plain_ms": mscp,
+         "bound_ms": bc[0], "bound_by": bc[1], "library_ms": None},
         {"name": "corridor", "route": "cuda", "source": CSRC + "corridor.cu",
          "replaces": "forces_resilient_planner_tpu/ops/corridor_pallas.py:98",
          "launches": l3, "max_abs_err": err3, "ms": ms3, "plain_ms": ms3p,
@@ -1419,18 +1523,18 @@ def run_slice3(dev, card, mono_grid):
 
 @contextlib.contextmanager
 def capture_solves(solves):
-    """Records, cloned, the arguments of the K1, K2 and K3 wrappers in the
-    NMPC solves numbered `solves` (0-based, one K2 and one K3 call each,
-    then that solve's K1 calls).  The wrappers run and count their
-    launches as before.  Yields {solve: {"K1": [args, ...], "K2": args,
-    "K3": args}}."""
-    got, seen = {}, {"K2": 0, "K3": 0}
+    """Records, cloned, the arguments of the K1, K2, tube chain and K3
+    wrappers in the NMPC solves numbered `solves` (0-based, one K2, one
+    chain and one K3 call each, then that solve's K1 calls).  The wrappers
+    run and count their launches as before.  Yields {solve: {"K1": [args,
+    ...], "K2": args, "chain": args, "K3": args}}."""
+    got, seen = {}, {"K2": 0, "chain": 0, "K3": 0}
 
     def recorded(name, real):
         def wrapper(*args):
             if name == "K1":
                 s = seen["K3"] - 1
-                if seen["K2"] == seen["K3"] and s in got:
+                if seen["K2"] == seen["chain"] == seen["K3"] and s in got:
                     got[s]["K1"].append(map_tensors(torch.clone, args))
             else:
                 s = seen[name]
@@ -1445,6 +1549,7 @@ def capture_solves(solves):
         for name, module, attr in (
                 ("K1", ipm_kernel, "ipm_iteration_fused"),
                 ("K2", tube_kernel, "tube_stage_lanes"),
+                ("chain", tube_kernel, "tube_chain_lanes"),
                 ("K3", corridor_kernel, "decompose_stages_lanes")):
             stack.enter_context(mock.patch.object(
                 module, attr, recorded(name, getattr(module, attr))))
@@ -1477,14 +1582,15 @@ def k1_f64(args):
 
 
 def hold_solves(captured, phase, label):
-    """Each captured solve's K2, K3 and K1 calls held against their plain
-    versions at f64 on the same values (cast from the run's f32), with the
-    bars of phases 2, 5 and 6; any miss fails the phase.  Returns each
-    solve's largest cloud (masked points of a lane)."""
-    if not captured or any({"K1", "K2", "K3"} - set(c) or not c["K1"]
+    """Each captured solve's K2, tube chain, K3 and K1 calls held against
+    their plain versions at f64 on the same values (cast from the run's
+    f32), with the bars of phases 2, 5 and 6; any miss fails the phase.
+    Returns each solve's largest cloud (masked points of a lane)."""
+    if not captured or any({"K1", "K2", "chain", "K3"} - set(c) or not c["K1"]
                            for c in captured.values()):
-        fail(f"{label}: a captured solve lacks a K1, K2 or K3 call")
+        fail(f"{label}: a captured solve lacks a K1, K2, chain or K3 call")
     k1_rel, k1_calls, k2_rel, dA, db = 0.0, 0, 0.0, 0.0, 0.0
+    chain_rel = 0.0
     for c in captured.values():
         x, u, mcfg, tcfg, K = as_f64(c["K2"])
         ref = tube_kernel.tube_stage_reference(x, u, mcfg, tcfg, K)
@@ -1495,6 +1601,8 @@ def hold_solves(captured, phase, label):
             if not rel <= 1e-10:
                 fail(f"K2 f64 {label}: {name} max rel {rel:.3e} > 1e-10")
             k2_rel = max(k2_rel, rel)
+        chain_rel = max(chain_rel, chain_check(
+            *as_f64(c["chain"]), f"f64 {label}")[0])
         p1, p2, obs, mask, ccfg, nh = as_f64(c["K3"])
         rows = corridor_rows((p1, p2, obs, mask), ccfg, nh)
         dA, db = max(dA, rows[0].max().item()), max(db, rows[1].max().item())
@@ -1505,14 +1613,16 @@ def hold_solves(captured, phase, label):
             k1_calls += 1
     clouds = [int(c["K3"][3].sum(dim=-1).max()) for c in captured.values()]
     p1, obs, ccfg = c["K3"][0], c["K3"][2], c["K3"][4]
-    say(f"phase {phase} {label}: K1, K2 and K3 vs plain at f64 on the inputs "
+    say(f"phase {phase} {label}: K1, K2, the chain and K3 vs plain at f64 on "
+        f"the inputs "
         f"of {len(captured)} solves (B={p1.shape[0]} N={p1.shape[1]} "
         f"M={obs.shape[1]}, up to {max(clouds)} cloud points a lane, "
         f"corridor shrink_iters {ccfg.shrink_iters} max_obs_planes "
         f"{ccfg.max_obs_planes}): K1 {k1_calls} calls, max rel {k1_rel:.2e} "
         f"(bar 1e-9 (1+|ref|), identical it/done); K2 max rel {k2_rel:.2e} "
-        f"(bar 1e-10 (1+|ref|)); K3 max |dA| {dA:.2e}, max |db| {db:.2e} "
-        "(bar 1e-9 on every row)")
+        f"(bar 1e-10 (1+|ref|)); the chain max rel {chain_rel:.2e} (bar "
+        f"1e-10 (1+|ref|), NaN alike); K3 max |dA| {dA:.2e}, max |db| "
+        f"{db:.2e} (bar 1e-9 on every row)")
     return clouds
 
 
@@ -1605,7 +1715,7 @@ def check_fleet(dev, card):
         res = fly_fleet(setup, dur, trace)
     torch.cuda.synchronize()
     counts = launch_counts()
-    l1, l2, l3, l4a, l4b = counts
+    l1, l2, l3, l4a, l4b, lc = counts
     steps = ipm_lanes.STEPS
     if "jax" in sys.modules:
         fail("jax was imported")
@@ -1620,12 +1730,12 @@ def check_fleet(dev, card):
         f"goal {to_goal:.3f} s, wall "
         f"{res.wall_s:.2f} s "
         f"(per-tick trace on), realtime factor {B * dur / res.wall_s:.1f}; "
-        f"launches K2 {l2} K3 {l3} K1 {l1} K4a {l4a} K4b {l4b}, host-loop "
-        f"steps {steps}")
-    if not (l2 == l3 == ticks and solver_launches_ok(counts, steps,
-                                                     cfg.solver)):
-        fail(f"fleet launches: K2 {l2}, K3 {l3} (want {ticks} each), K1 {l1} "
-             f"vs host-loop steps {steps}, K4a {l4a}, K4b {l4b}")
+        f"launches K2 {l2} chain {lc} K3 {l3} K1 {l1} K4a {l4a} K4b {l4b}, "
+        f"host-loop steps {steps}")
+    if not (l2 == lc == l3 == ticks and solver_launches_ok(counts, steps,
+                                                           cfg.solver)):
+        fail(f"fleet launches: K2 {l2}, the chain {lc}, K3 {l3} (want {ticks} "
+             f"each), K1 {l1} vs host-loop steps {steps}, K4a {l4a}, K4b {l4b}")
     if res.collided_frac != 0.0:
         fail(f"fleet collided {res.collided_frac}")
     if sum(res.outcome_counts.values()) != B:
@@ -1689,7 +1799,7 @@ def check_robot(dev, card):
         p, trace = fly_robot(cfg, goal, dur, dev, sched)
         wall = time.perf_counter() - t0
         torch.cuda.synchronize()
-        l1, l2, l3, l4a, l4b = launch_counts()
+        l1, l2, l3, l4a, l4b, lc = launch_counts()
         d = p.diag
         miss = float(np.linalg.norm(trace["pos"][-1]
                                     - np.array([goal[0], goal[1], 1.2])))
@@ -1698,7 +1808,8 @@ def check_robot(dev, card):
             f"{miss:.3f} m (bar {tol}), solves {d.solves}, failures "
             f"{d.solve_failures}, replans {d.replans}, transitions "
             f"{len(d.fsm_transitions)}; solve p50 {solve['p50_ms']:.2f} ms, "
-            f"p99 {solve['p99_ms']:.2f}; launches K2 {l2} K3 {l3} K1 {l1}, "
+            f"p99 {solve['p99_ms']:.2f}; launches K2 {l2} chain {lc} K3 {l3} "
+            f"K1 {l1}, "
             f"host-loop steps {ipm_lanes.STEPS}; wall {wall:.2f} s")
         if miss >= tol:
             fail(f"robot {label}: final distance {miss:.3f} m >= {tol}")
@@ -1706,10 +1817,10 @@ def check_robot(dev, card):
                 d.solves > 10 and d.solve_failures <= d.solves // 4):
             fail(f"robot {label}: {d.solve_failures} failures of "
                  f"{d.solves} solves")
-        if not (l2 == l3 == d.solves and l1 == ipm_lanes.STEPS > 0
+        if not (l2 == lc == l3 == d.solves and l1 == ipm_lanes.STEPS > 0
                 and l4a == l4b == 0):
-            fail(f"robot launches: K2 {l2}, K3 {l3} vs {d.solves} solves, "
-                 f"K1 {l1} vs {ipm_lanes.STEPS} steps")
+            fail(f"robot launches: K2 {l2}, the chain {lc}, K3 {l3} vs "
+                 f"{d.solves} solves, K1 {l1} vs {ipm_lanes.STEPS} steps")
 
     # the obstacle scene, its own bars; every 4th solve's kernel inputs held
     reset_counts()
@@ -1719,7 +1830,7 @@ def check_robot(dev, card):
                              occupied=workloads.fence_points())
     wall = time.perf_counter() - t0
     torch.cuda.synchronize()
-    l1, l2, l3, l4a, l4b = launch_counts()
+    l1, l2, l3, l4a, l4b, lc = launch_counts()
     steps, d, final = ipm_lanes.STEPS, p.diag, trace["pos"][-1]
     ys = [q[1] for q in trace["pos"] if 1.35 < q[0] < 1.65]
     say(f"phase 13 robot fence 7.0 s f32 [{card}]: final position "
@@ -1727,15 +1838,16 @@ def check_robot(dev, card):
         f"at the fence line with y in [{min(ys, default=np.nan):.3f}, "
         f"{max(ys, default=np.nan):.3f}] (bar (-0.2, 1.7)), solves "
         f"{d.solves}, failures {d.solve_failures}, replans {d.replans}; "
-        f"launches K2 {l2} K3 {l3} K1 {l1}, host-loop steps {steps}; wall "
-        f"{wall:.2f} s")
+        f"launches K2 {l2} chain {lc} K3 {l3} K1 {l1}, host-loop steps "
+        f"{steps}; wall {wall:.2f} s")
     if not final[0] > 2.8:
         fail(f"robot fence: final x {final[0]:.3f} <= 2.8")
     if not (ys and all(-0.2 < y < 1.7 for y in ys)):
         fail("robot fence: not inside the gap band at the fence line")
-    if not (l2 == l3 == d.solves and l1 == steps > 0 and l4a == l4b == 0):
-        fail(f"robot fence launches: K2 {l2}, K3 {l3} vs {d.solves} solves, "
-             f"K1 {l1} vs {steps} steps")
+    if not (l2 == lc == l3 == d.solves and l1 == steps > 0
+            and l4a == l4b == 0):
+        fail(f"robot fence launches: K2 {l2}, the chain {lc}, K3 {l3} vs "
+             f"{d.solves} solves, K1 {l1} vs {steps} steps")
     clouds = hold_solves(captured, 13, "the robot's fence solves")
     if max(clouds) == 0:
         fail("robot fence: every solve's corridor cloud was empty")
@@ -1787,7 +1899,7 @@ def stack_out(out):
 
 def forces_solve(params, profile, dtype, device, cfg=DEFAULT_CONFIG):
     """One ForcesSolver solve on a copy of params: (Z (N, 17), exitflag,
-    info, K launches (K1, K2, K3, K4a, K4b), host-loop steps)."""
+    info, launch_counts(), host-loop steps)."""
     params = dataclasses.replace(
         params, xinit=params.xinit.copy(), x0=params.x0.copy(),
         all_parameters=params.all_parameters.copy())
@@ -1829,7 +1941,7 @@ def check_forces_api(dev, card):
                 fail(f"FORCES API {name} {profile}: f32 exitflag {f32}, "
                      f"|du| {du32:.2e}")
             for c, n in ((cnt, steps), (cnt32, steps32)):
-                if not (c[0] == n > 1 and c[1:] == (0, 0, 0, 0)):
+                if not (c[0] == n > 1 and c[1:] == (0, 0, 0, 0, 0)):
                     fail(f"FORCES API {name} {profile}: launches {c} vs "
                          f"{n} host-loop steps")
         say(f"phase 14 FORCES API {name}: terminal speed final "
@@ -1997,17 +2109,18 @@ def check_entry(dev):
     reset_counts()
     out, ec, kkt = fn(*args)
     torch.cuda.synchronize()
-    (l1, l2, l3, l4a, l4b), steps = launch_counts(), ipm_lanes.STEPS
+    (l1, l2, l3, l4a, l4b, lc), steps = launch_counts(), ipm_lanes.STEPS
     fn_c, args_c = entry.entry(device="cpu")
     ec_c = int(fn_c(*args_c)[1])
     say(f"phase 14 entry(): mpc_output {tuple(out.shape)} finite "
         f"{bool(out.isfinite().all())}, exit code {int(ec)} (CPU {ec_c}), "
-        f"kkt {float(kkt):.2e}; K2 {l2} K3 {l3} K1 {l1}, host-loop steps "
-        f"{steps}")
+        f"kkt {float(kkt):.2e}; K2 {l2} chain {lc} K3 {l3} K1 {l1}, host-loop "
+        f"steps {steps}")
     if not (bool(out.isfinite().all()) and int(ec) == ec_c):
         fail(f"entry(): exit code {int(ec)} vs CPU {ec_c} or not finite")
-    if not (l2 == l3 == 1 and l1 == steps > 0 and l4a == l4b == 0):
-        fail(f"entry() launches: K1 {l1} vs {steps}, K2 {l2}, K3 {l3}")
+    if not (l2 == lc == l3 == 1 and l1 == steps > 0 and l4a == l4b == 0):
+        fail(f"entry() launches: K1 {l1} vs {steps}, K2 {l2}, the chain "
+             f"{lc}, K3 {l3}")
     t0 = time.perf_counter()
     rep = entry.dryrun_multichip(1, timeout=300)
     say(f"phase 14 dryrun_multichip(1): {rep} in "
@@ -2214,7 +2327,7 @@ def check_aot(dev, build_s):
 
 def run_example(module, argv):
     """One example's main in this process, its output captured: (its
-    return value, its printed text, launches (K1..K4b), host-loop steps,
+    return value, its printed text, launch_counts(), host-loop steps,
     seconds)."""
     reset_counts()
     buf = io.StringIO()
@@ -2244,10 +2357,12 @@ def check_examples(dev, card):
             total += (l1, l2, l3)
             lines = [ln for ln in text.splitlines() if ln.strip()]
             say(f"phase 15 example {label} [{card}]: {sec:.1f} s, K1 {l1} = "
-                f"host-loop steps {steps}, K2 {l2}, K3 {l3}; "
+                f"host-loop steps {steps}, K2 {l2}, chain {counts[5]}, K3 "
+                f"{l3}; "
                 + " | ".join(lines[-3:] if label.startswith("config1")
                              else lines[-2:]))
-            ok = l1 == steps > 0 and counts[3] == counts[4] == 0
+            ok = (l1 == steps > 0 and counts[3] == counts[4] == 0
+                  and counts[5] == l2)
             if label.startswith("config1"):
                 ok &= out["exit"] == 1 and out.get("oracle_err", 0) <= 1e-3
                 ok &= l2 == l3 == 0
@@ -2424,7 +2539,7 @@ def check_planner_f64(dev, card):
                                       force_schedule=workloads.wind)
     wall = time.perf_counter() - t0
     torch.cuda.synchronize()
-    l1, l2, _, l4a, l4b = launch_counts()
+    l1, l2, _, l4a, l4b, lc = launch_counts()
     routes = dict(corridor_kernel.LAUNCHES)
     steps, d = ipm_lanes.STEPS, p.diag
     pos = np.asarray(trace["pos"])
@@ -2440,17 +2555,17 @@ def check_planner_f64(dev, card):
         f"(bar 0), solves {d.solves}, failures {d.solve_failures}, replans "
         f"{d.replans}; MPC tick (solve) p50 {np.percentile(solve, 50):.2f} "
         f"ms, p99 {np.percentile(solve, 99):.2f} ms over {len(solve)} ticks "
-        f"after 3; launches K3 {routes}, K2 {l2}, K1 {l1}, host-loop steps "
-        f"{steps}; wall {wall:.2f} s")
+        f"after 3; launches K3 {routes}, K2 {l2}, chain {lc}, K1 {l1}, "
+        f"host-loop steps {steps}; wall {wall:.2f} s")
     if not miss < 0.5:
         fail(f"planner f64: final distance {miss:.3f} m to the goal >= 0.5")
     if hits:
         fail(f"planner f64: {hits} trace points in occupied voxels")
-    if not (routes["corridor_gathered"] == l2 == d.solves > 0
+    if not (routes["corridor_gathered"] == l2 == lc == d.solves > 0
             and routes["corridor"] == 0 and l1 == steps > 0
             and l4a == l4b == 0):
-        fail(f"planner f64 launches: K3 {routes}, K2 {l2} vs {d.solves} "
-             f"solves, K1 {l1} vs {steps} steps")
+        fail(f"planner f64 launches: K3 {routes}, K2 {l2}, the chain {lc} "
+             f"vs {d.solves} solves, K1 {l1} vs {steps} steps")
     return routes["corridor_gathered"]
 
 
@@ -2646,6 +2761,12 @@ def build_phase():
                    f"({threads} threads, {smem} B of shared memory) per CTA")
     say("phase 1 K2 (tube_stage.cu): " + "; ".join(geo)
         + " (registers and spills: the tube_stage.cu line above)")
+    # tube_chain.cu's compile-time geometry: CHAIN_TEAMS = 3 robots of 9
+    # threads in one warp, chain_robot_elements(N) = 18 N + 144 a robot
+    say(f"phase 1 the tube chain (tube_chain.cu) at N = {N}: 3 robots x 9 "
+        f"threads (32 threads) per CTA, {3 * (18 * N + 144) * 4} / "
+        f"{3 * (18 * N + 144) * 8} B of shared memory at f32 / f64 "
+        "(registers and spills: the tube_chain.cu line above)")
     lib3 = _build.load(corridor_kernel.SOURCE, corridor_kernel._bind)
     geo = []
     for dtype in (torch.float32, torch.float64):

@@ -5,6 +5,7 @@ is split at the solver boundary:
 
   references                    -> engine/reference.py, batched over robots
   tubes (per-stage math)        -> ops/tube_kernel.py (CUDA kernel K2)
+  tubes (recursion and roots)   -> ops/tube_kernel.py (the tube chain kernel)
   corridors (all-stage decomp.) -> ops/corridor_kernel.py (CUDA kernel K3),
                                    then the sequential reuse selection
   tightening                    -> tube/lyapunov.py::tighten_corridor

@@ -1,9 +1,9 @@
 """Build and load the hand-written CUDA kernels of ops/csrc/.
 
 nvcc compiles each source of ops/csrc/ (ipm_iteration.cu, tube_stage.cu,
-corridor.cu, lqr.cu; all include common.cuh, and ipm_iteration.cu and
-lqr.cu riccati.cuh) for sm_90a into its own shared library with a plain C
-interface, loaded with ctypes.  A library is built
+tube_chain.cu, corridor.cu, lqr.cu; all include common.cuh, and
+ipm_iteration.cu and lqr.cu riccati.cuh) for sm_90a into its own shared
+library with a plain C interface, loaded with ctypes.  A library is built
 at first use into ops/csrc/build/ (git-ignored) and rebuilt whenever its
 source, a header or the flags change (the file name carries their hash).
 `build()` starts one nvcc per source, all at once.  Without nvcc the build
@@ -25,7 +25,8 @@ from typing import Callable, NamedTuple
 from forces_resilient_planner_tpu_torch.utils import trace
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("ipm_iteration.cu", "tube_stage.cu", "corridor.cu", "lqr.cu")
+SOURCES = ("ipm_iteration.cu", "tube_stage.cu", "tube_chain.cu",
+           "corridor.cu", "lqr.cu")
 BUILD_DIR = CSRC / "build"
 NVCC_FALLBACK = "/usr/local/cuda/bin/nvcc"
 # no --use_fast_math: the NaN guards need IEEE division and isfinite;
@@ -40,8 +41,11 @@ NVCC_FLAGS = (
 # card, where the Riccati sweep of a late interior-point iteration turns a
 # last-bit difference into a relative one of 1e-9 and more; corridor.cu
 # neither, and writes the plain version's emulated FMAs as __fma_rn, so that
-# it decides the ties of a voxel cloud as the plain version does
-SOURCE_FLAGS = {"lqr.cu": ("-fmad=false",), "corridor.cu": ("-fmad=false",)}
+# it decides the ties of a voxel cloud as the plain version does; nor
+# tube_chain.cu, which rounds the tube recursion and roots op for op as
+# their plain versions do
+SOURCE_FLAGS = {"lqr.cu": ("-fmad=false",), "corridor.cu": ("-fmad=false",),
+                "tube_chain.cu": ("-fmad=false",)}
 
 
 class Built(NamedTuple):

@@ -1,15 +1,19 @@
-"""Per-stage tube math over stage lanes: CUDA kernel + plain PyTorch version.
+"""The tube stage's CUDA kernels and their plain PyTorch versions.
 
 Counterpart of forces_resilient_planner_tpu/ops/tube_pallas.py.  The
-kernel (csrc/tube_stage.cu) replaces the Pallas TPU kernel `_tube_kernel`
-(tube_pallas.py:65): per stage lane it forms Phi = Jc + Bc K, the three
-disturbance-channel Gramians and e^{Phi dt} by the scaled Taylor series
-and doublings, the trace-normalized Qd and the ego ellipsoid Q1.
+kernel K2 (csrc/tube_stage.cu) replaces the Pallas TPU kernel
+`_tube_kernel` (tube_pallas.py:65): per stage lane it forms Phi = Jc + Bc
+K, the three disturbance-channel Gramians and e^{Phi dt} by the scaled
+Taylor series and doublings, the trace-normalized Qd and the ego ellipsoid
+Q1.  The tube chain (csrc/tube_chain.cu) takes K2's outputs and does the
+rest of the tube stage per robot in one launch: the Minkowski stage
+recursion, the combination with Q1 and the Denman-Beavers square roots.
 
 Route by device: on a CPU tensor `tube_stage_lanes` runs
-`tube_stage_reference` (the formulas of tube/lyapunov.py); on a CUDA
-tensor it launches the kernel or raises.  Unlike the JAX package there is
-no batch-size gate: one lane on the card runs the kernel too.
+`tube_stage_reference` and `tube_chain_lanes` runs `tube_chain_reference`
+(the formulas of tube/lyapunov.py); on a CUDA tensor each launches its
+kernel or raises.  Unlike the JAX package there is no batch-size gate: one
+lane on the card runs the kernels too.
 """
 from __future__ import annotations
 
@@ -22,10 +26,12 @@ from forces_resilient_planner_tpu_torch.ops import _build
 from forces_resilient_planner_tpu_torch.tube import lyapunov
 
 SOURCE = "tube_stage.cu"
+CHAIN_SOURCE = "tube_chain.cu"
 NX = 9
 
-# kernel launches, over all calls in this process
+# kernel launches, over all calls in this process: K2, the tube chain
 LAUNCHES = 0
+CHAIN_LAUNCHES = 0
 
 # the Taylor length each instantiation is launched with (= the plain
 # path's lyapunov.taylor_n_terms; csrc/tube_stage.cu's TUBE_ENTRY lines)
@@ -46,6 +52,9 @@ def _consts_struct(ctype):
 
 _STRUCTS = {dt: _consts_struct(ct) for dt, (_, ct) in _ENTRY.items()}
 
+_CHAIN_ENTRY = {torch.float32: ("tube_chain_f32", ctypes.c_float),
+                torch.float64: ("tube_chain_f64", ctypes.c_double)}
+
 
 def _bind(lib):
     for name, ctype in _ENTRY.values():
@@ -55,6 +64,14 @@ def _bind(lib):
         fn.restype = ctypes.c_int
     lib.tube_geometry.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3
     lib.tube_geometry.restype = None
+
+
+def _bind_chain(lib):
+    for name, ctype in _CHAIN_ENTRY.values():
+        fn = getattr(lib, name)
+        fn.argtypes = ([ctypes.c_int, ctypes.c_int, ctype]
+                       + [ctypes.c_void_p] * 5 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
 
 
 def launch_geometry(lib, dtype):
@@ -160,6 +177,34 @@ def tube_stage_operations(Phi: torch.Tensor, dt: float, n_terms: int) -> int:
             + DOUBLING_OPS * int(s.sum().item()))
 
 
+# Operations of the tube chain, counted as above from the formulas of
+# tube/lyapunov.py that csrc/tube_chain.cu follows (a division, a square
+# root and a power count 1, a negation and an absolute value 0):
+#   the 9x9 Minkowski sum: the traces (16 add), beta = sqrt(t1 / t2) (2),
+#     1 + 1/beta and 1 + beta (3), 81 entries of 2 mul and 1 add        264
+#   W = Mp[0:3] Qu (27 entries of 9 mul and 8 add) and Q2 = W Mp[0:3]^T
+#     (9 entries)                                               459 + 153
+STAGE_OPS = 264 + 459 + 153
+#   the combination's 3x3 Minkowski sum (the traces 4, beta and its
+#     factors 5, 9 entries of 3)                                          36
+COMBINE_OPS = 36
+#   det3: 3 cofactors of 3, 3 mul and 2 add                               14
+#   inv3: det3's 14, the other 6 cofactors (18), 9 divisions              41
+#   a Denman-Beavers step: two det3, g (a product, a power), gY and gZ
+#     (18), two inv3, Y and Z (9 entries of an add and a mul, twice)    166
+#   the root: the regularisation (the trace 2, 1e-12 tr + 1e-30 2, the
+#     diagonal 3), 12 steps, the symmetrisation (9 add, 9 mul)          2017
+ROOT_OPS = 7 + 12 * (2 * 14 + 2 + 18 + 2 * 41 + 36) + 18
+
+
+def tube_chain_operations(B: int, N: int) -> int:
+    """Operations that the tube chain of B robots of N stages needs: per
+    robot, N recursion stages and roots and N - 1 combinations.  A counting
+    helper for the kernel's bound (k23_probe.py); the main path never calls
+    it."""
+    return B * (N * (STAGE_OPS + ROOT_OPS) + (N - 1) * COMBINE_OPS)
+
+
 def tube_stage_lanes(x: torch.Tensor, u: torch.Tensor, mcfg: ModelConfig,
                      tcfg: TubeConfig, K=None):
     """Per-stage tube math over L stage lanes with the gain K (a (4, 9)
@@ -188,3 +233,72 @@ def tube_stage_lanes(x: torch.Tensor, u: torch.Tensor, mcfg: ModelConfig,
                       torch.cuda.current_stream(x.device).cuda_stream, Kt)
     LAUNCHES += 1
     return outs
+
+
+def launch_chain(lib, Qd, Mp, Q1, tcfg: TubeConfig, stream):
+    """One launch of the tube chain in `lib` (the nvcc build, or the CPU
+    build of the tests) on checked, contiguous Qd, Mp (B, N, 9, 9) and Q1
+    (B, N, 3, 3); returns (E, Q2 (B, N, 3, 3)), allocated like Q1.  Raises
+    when the launch fails."""
+    B, N = Q1.shape[0], Q1.shape[1]
+    entry, ctype = _CHAIN_ENTRY[Q1.dtype]
+    E, Q2 = Q1.new_empty((B, N, 3, 3)), Q1.new_empty((B, N, 3, 3))
+    rc = getattr(lib, entry)(
+        B, N, ctype(tcfg.epsilon ** 2), Qd.data_ptr(), Mp.data_ptr(),
+        Q1.data_ptr(), E.data_ptr(), Q2.data_ptr(), stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"tube_chain kernel launch failed: CUDA error {rc}")
+    return E, Q2
+
+
+def tube_chain_reference(Qd: torch.Tensor, Mp: torch.Tensor,
+                         Q1: torch.Tensor, tcfg: TubeConfig):
+    """Plain PyTorch version: the stage recursion of propagate_tubes_batch
+    (setFORCESParams, nmpc_solver.cpp:490-520), the combination with the
+    ego ellipsoids and the Denman-Beavers roots.
+    Qd, Mp (B, N, 9, 9), Q1 (B, N, 3, 3) -> (E, Q2 (B, N, 3, 3))."""
+    B, N = Q1.shape[0], Q1.shape[1]
+    Q_init = ((tcfg.epsilon ** 2)
+              * torch.eye(NX, dtype=Q1.dtype, device=Q1.device)
+              ).expand(B, NX, NX)
+    Q2 = []
+    for i in range(N):
+        Qu = lyapunov.minkowski_sum(Q_init, Qd[:, i])
+        Q2.append((Mp[:, i] @ Qu @ Mp[:, i].transpose(-1, -2))[:, 0:3, 0:3])
+        Q_init = Qu
+    Q2pos = torch.stack(Q2, dim=1)                               # (B, N, 3, 3)
+
+    Qcomb = torch.cat(
+        [Q1[:, 0:1], lyapunov.minkowski_sum(Q1[:, 1:], Q2pos[:, :-1])], dim=1
+    )
+    return lyapunov.sqrtm_psd_db(Qcomb), Q2pos
+
+
+def tube_chain_lanes(Qd: torch.Tensor, Mp: torch.Tensor, Q1: torch.Tensor,
+                     tcfg: TubeConfig):
+    """The tube stage after K2 for B robots of N stages: Qd, Mp (B, N, 9, 9)
+    and Q1 (B, N, 3, 3) as K2 gives them -> (E, Q2 (B, N, 3, 3))."""
+    global CHAIN_LAUNCHES
+    if Q1.device.type == "cpu":
+        return tube_chain_reference(Qd, Mp, Q1, tcfg)
+    if Q1.device.type != "cuda":
+        raise ValueError(f"no route for tensors on {Q1.device}")
+    if Q1.dtype not in _CHAIN_ENTRY:
+        raise ValueError(f"the CUDA kernel takes float32 or float64, not {Q1.dtype}")
+    B, N = Q1.shape[0], Q1.shape[1]
+    for name, t, shape in (("Qd", Qd, (B, N, NX, NX)), ("Mp", Mp, (B, N, NX, NX)),
+                           ("Q1", Q1, (B, N, 3, 3))):
+        if tuple(t.shape) != shape or t.dtype != Q1.dtype or t.device != Q1.device:
+            raise ValueError(f"{name}: {tuple(t.shape)} {t.dtype} on {t.device}, "
+                             f"expected {shape} {Q1.dtype} on {Q1.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: the kernel takes contiguous tensors only")
+    if B == 0 or N == 0:
+        raise ValueError("need B >= 1 robots and N >= 1 stages")
+    lib = _build.load(CHAIN_SOURCE, _bind_chain)
+    with torch.cuda.device(Q1.device):
+        out = launch_chain(lib, Qd, Mp, Q1, tcfg,
+                           torch.cuda.current_stream(Q1.device).cuda_stream)
+    CHAIN_LAUNCHES += 1
+    return out

@@ -14,8 +14,10 @@ Port of the main path of forces_resilient_planner_tpu/tube/lyapunov.py
     Minkowski-sum approximation (nmpc_solver.cpp:507-509, 601-603).
 
 The per-stage part runs in ops/tube_kernel.py::tube_stage_lanes (the CUDA
-kernel on a CUDA tensor, the formulas below on a CPU tensor); the O(N)
-Minkowski recursion and the Denman-Beavers square root stay here.  The
+kernel K2 on a CUDA tensor, the formulas below on a CPU tensor), the O(N)
+Minkowski recursion and the Denman-Beavers square root after it in
+ops/tube_kernel.py::tube_chain_lanes (the tube chain kernel on a CUDA
+tensor; on a CPU tensor minkowski_sum and sqrtm_psd_db below).  The
 oracle functions at the end (lyapunov_solve, lyapunov_gramian, channel_Qd,
 sqrtm_psd) solve the same per-stage problem by other algorithms (a
 Kronecker solve, Van Loan's block exponential, eigh); no path of the
@@ -166,32 +168,18 @@ def propagate_tubes_batch(
     The per-stage math runs over the L = B N stage lanes in
     ops/tube_kernel.py::tube_stage_lanes with the gain K (a (4, 9) tensor or
     array, used as given on both routes), or the config gain tcfg.K when K
-    is None."""
+    is None; the recursion, the combination and the roots per robot in
+    ops/tube_kernel.py::tube_chain_lanes."""
     from forces_resilient_planner_tpu_torch.ops import tube_kernel
 
     B, N = Z_prev.shape[0], Z_prev.shape[1]
-    dtype, device = Z_prev.dtype, Z_prev.device
     x = Z_prev[..., 8:17].reshape(B * N, NX).contiguous()
     u = Z_prev[..., 0:4].reshape(B * N, 4).contiguous()
     Qd, Mp, Phi, Q1 = tube_kernel.tube_stage_lanes(x, u, mcfg, tcfg, K)
-    Qd = Qd.reshape(B, N, NX, NX)
-    Mp = Mp.reshape(B, N, NX, NX)
-    Q1 = Q1.reshape(B, N, 3, 3)
-
-    Q_init = ((tcfg.epsilon ** 2)
-              * torch.eye(NX, dtype=dtype, device=device)).expand(B, NX, NX)
-    Q2 = []
-    for i in range(N):
-        Qu = minkowski_sum(Q_init, Qd[:, i])
-        Q2.append((Mp[:, i] @ Qu @ Mp[:, i].transpose(-1, -2))[:, 0:3, 0:3])
-        Q_init = Qu
-    Q2pos = torch.stack(Q2, dim=1)                               # (B, N, 3, 3)
-
-    Qcomb = torch.cat(
-        [Q1[:, 0:1], minkowski_sum(Q1[:, 1:], Q2pos[:, :-1])], dim=1
-    )
-    return TubeResult(E=sqrtm_psd_db(Qcomb), Q2=Q2pos,
-                      Phi=Phi.reshape(B, N, NX, NX))
+    E, Q2 = tube_kernel.tube_chain_lanes(
+        Qd.reshape(B, N, NX, NX), Mp.reshape(B, N, NX, NX),
+        Q1.reshape(B, N, 3, 3), tcfg)
+    return TubeResult(E=E, Q2=Q2, Phi=Phi.reshape(B, N, NX, NX))
 
 
 def propagate_tubes(Z_prev: torch.Tensor, mcfg: ModelConfig,

@@ -6,7 +6,7 @@ compiled library with the robot (plan_manage/matlab_code/
 generate_solver.m); the JAX package ships a serialized `jax.export`
 artifact.  The port compiles its CUDA kernels with nvcc at first use
 (ops/_build.py), so a machine without the CUDA toolkit cannot build them.
-`export_batched_solver` writes a directory with the four prebuilt kernel
+`export_batched_solver` writes a directory with the five prebuilt kernel
 libraries and a manifest; `load_solver` runs the batched solve on them
 and never calls nvcc:
 
@@ -82,7 +82,7 @@ def config_from_json(d: dict) -> PlannerConfig:
 
 def export_batched_solver(cfg: PlannerConfig, batch: int,
                           dtype=torch.float32, path="solver") -> Path:
-    """Write the solver directory at `path`: the four kernel libraries
+    """Write the solver directory at `path`: the five kernel libraries
     (built here with nvcc when not cached; ops/_build.py raises without
     it) and the manifest.  Returns the directory."""
     name = _dtype_name(dtype)

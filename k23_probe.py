@@ -1,7 +1,7 @@
-"""Time the tube kernel (K2) and the corridor kernel (K3) on the card through
-their public wrappers, optionally the Riccati kernels K4a and K4b of the
-predictor-corrector and K5a and K5b of the batched LQR, and optionally the
-end-to-end paths around them.
+"""Time the tube kernel (K2), the tube chain and the corridor kernel (K3) on
+the card through their public wrappers, optionally the Riccati kernels K4a
+and K4b of the predictor-corrector and K5a and K5b of the batched LQR, and
+optionally the end-to-end paths around them.
 
     python3 k23_probe.py [--reps R] [--m M [M ...]] [--k3-split] [--k4] [--k5]
                          [--e2e]
@@ -9,7 +9,10 @@ end-to-end paths around them.
 
 Run from the root of a checkout; needs an NVIDIA GPU.  One run prints one
 JSON line: the card, K2 ms per call at L = 4096 x 20 stage lanes (the full
-step's f32 inputs, chip_smoke.step_inputs) and, for each M of --m (default
+step's f32 inputs, chip_smoke.step_inputs), the tube chain ms per call on
+K2's outputs there at B = 4096 and B = 1 (N = 20) beside its bound
+(utils/measure.py::bound of the bytes it must move and
+tube_kernel.tube_chain_operations) and, for each M of --m (default
 256), K3 ms per call on the full step's segments with M obstacles per robot
 (B = 4096, N = 20) and on chip_smoke.random_segments at B = 64 (phase 6's
 generic case); each time is CUDA events over R calls after a warm-up,
@@ -93,6 +96,20 @@ def probe(args) -> None:
              Z[..., 0:4].reshape(B * N, 4).contiguous(), cfg.model, cfg.tube)
     out["K2"] = timed(tube_kernel.tube_stage_lanes,
                       tube_kernel.tube_stage_reference, targs)
+    if hasattr(tube_kernel, "tube_chain_lanes"):     # not in earlier checkouts
+        Qd, Mp, _, Q1 = tube_kernel.tube_stage_lanes(*targs)
+        for Bw in (B, 1):
+            a = (Qd.reshape(B, N, 9, 9)[:Bw], Mp.reshape(B, N, 9, 9)[:Bw],
+                 Q1.reshape(B, N, 3, 3)[:Bw], cfg.tube)
+            t = timed(tube_kernel.tube_chain_lanes,
+                      tube_kernel.tube_chain_reference, a)
+            ms, by = chip_smoke.chain_bound(*a[:3])
+            t.update(bound_ms=ms, bound_by=by,
+                     bound_share_pct=100 * ms / min(t["ms"]),
+                     plain_ms=chip_smoke.cuda_ms(
+                         lambda: tube_kernel.tube_chain_reference(*a), 3))
+            out[f"chain B={Bw} N={N}"] = t
+        del Qd, Mp, Q1
     del inputs, Z
 
     def cut(a, Bw):

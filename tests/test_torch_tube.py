@@ -11,6 +11,8 @@ own oracle, as tests/test_tube.py holds JAX's.  The Taylor term counts are
 pinned: the port's equal the JAX package's and the ones csrc/tube_stage.cu
 is launched with.  The CUDA kernel is held against its plain version on
 the card (cuda-marked test, and chip_smoke.py)."""
+import ctypes
+import ctypes.util
 import dataclasses
 import re
 from pathlib import Path
@@ -24,8 +26,10 @@ import torch
 import _cuda_emu
 from forces_resilient_planner_tpu.config import DEFAULT_CONFIG as C
 from forces_resilient_planner_tpu.tube import lyapunov as jl
+from forces_resilient_planner_tpu_torch.corridor import decomp
 from forces_resilient_planner_tpu_torch.ops import tube_kernel
 from forces_resilient_planner_tpu_torch.tube import lyapunov as tl
+from forces_resilient_planner_tpu_torch.utils import rounding
 
 TOL = 1e-10
 T64 = torch.float64
@@ -456,3 +460,223 @@ def test_kernel_source_lane_results_do_not_depend_on_their_slot(
         for g, r in zip(got, full):
             assert torch.equal(g.nan_to_num(), r[idx].nan_to_num())
             assert torch.equal(g.isnan(), r[idx].isnan())
+
+
+# ---- the tube chain: the recursion and the roots after K2 ------------------
+
+def test_tube_chain_lanes_routes_cpu_to_plain():
+    """On a CPU tensor the chain is its plain version and launches nothing;
+    a tensor on no device the route knows raises."""
+    B, N = 3, C.model.N
+    Qd, Mp, _, Q1 = tube_kernel.tube_stage_reference(
+        *(torch.as_tensor(a) for a in _points(B * N, seed=4)), C.model,
+        C.tube)
+    args = (Qd.reshape(B, N, 9, 9), Mp.reshape(B, N, 9, 9),
+            Q1.reshape(B, N, 3, 3), C.tube)
+    launches = tube_kernel.CHAIN_LAUNCHES
+    for g, r in zip(tube_kernel.tube_chain_lanes(*args),
+                    tube_kernel.tube_chain_reference(*args)):
+        assert torch.equal(g, r)
+    assert tube_kernel.CHAIN_LAUNCHES == launches
+    with pytest.raises(ValueError, match="no route"):
+        tube_kernel.tube_chain_lanes(*(a.to("meta") for a in args[:3]),
+                                     C.tube)
+
+
+def test_chain_operation_count_matches_hand_count():
+    """Per stage: the 9x9 Minkowski sum 16 + 2 + 3 + 81 x 3, W = Mp[0:3] Qu
+    27 x 17, Q2 9 x 17; per root the regularisation 7, 12 Denman-Beavers
+    steps (two det3 of 14, g 2, gY and gZ 18, two inv3 of 41, Y and Z 36)
+    and the symmetrisation 18; per combination 4 + 5 + 27.  3 robots of 5
+    stages: 5 stages, 5 roots and 4 combinations each."""
+    stage = (16 + 2 + 3 + 81 * 3) + 27 * 17 + 9 * 17
+    root = 7 + 12 * (2 * 14 + 2 + 18 + 2 * 41 + 36) + 18
+    assert (stage, root) == (876, 2017)
+    assert tube_kernel.tube_chain_operations(3, 5) == 3 * (
+        5 * (stage + root) + 4 * (4 + 5 + 27)) == 43827
+
+
+@pytest.fixture(scope="module")
+def emulated_chain(tmp_path_factory):
+    """csrc/tube_chain.cu built with g++ against the host stand-in of the
+    CUDA runtime."""
+    return _cuda_emu.build(tube_kernel.CHAIN_SOURCE,
+                           tmp_path_factory.mktemp("emu_chain"),
+                           tube_kernel._bind_chain)
+
+
+def _chain_inputs(B, N, dtype=T64, seed=6):
+    """K2's plain outputs on B robots' horizons (_horizons), cut to their
+    first N stages: (Qd, Mp (B, N, 9, 9), Q1 (B, N, 3, 3)) at dtype."""
+    Z = torch.as_tensor(_horizons(B, seed)[:, :N], dtype=dtype)
+    x = Z[..., 8:17].reshape(B * N, 9).contiguous()
+    u = Z[..., 0:4].reshape(B * N, 4).contiguous()
+    Qd, Mp, _, Q1 = tube_kernel.tube_stage_reference(x, u, C.model, C.tube)
+    return (Qd.reshape(B, N, 9, 9), Mp.reshape(B, N, 9, 9),
+            Q1.reshape(B, N, 3, 3))
+
+
+def _emulated_chain(lib, Qd, Mp, Q1):
+    return tube_kernel.launch_chain(lib, Qd.contiguous(), Mp.contiguous(),
+                                    Q1.contiguous(), C.tube, None)
+
+
+@pytest.mark.parametrize("N", [1, 5, 20])
+@pytest.mark.parametrize("dtype", [T64, torch.float32])
+def test_chain_source_matches_plain_on_cpu(emulated_chain, dtype, N):
+    """7 robots (CTAs of 3: a ragged last one) of N stages: E and Q2 within
+    1e-10 (1 + |ref|) at f64 and 1e-6 absolute at f32 of the plain chain."""
+    args = _chain_inputs(7, N, dtype)
+    got = _emulated_chain(emulated_chain, *args)
+    ref = tube_kernel.tube_chain_reference(*args, C.tube)
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape == (7, N, 3, 3) and g.dtype == dtype
+        assert torch.isfinite(r).all()
+        d = (g - r).abs()
+        if dtype == T64:
+            assert (d <= 1e-10 * (1 + r.abs())).all(), d.max()
+        else:
+            assert d.max().item() <= 1e-6, d.max()
+
+
+def test_chain_source_propagates_a_nan_stage_as_plain(emulated_chain):
+    """A NaN in robot 2's Qd at stage 7: NaN in its Q2 from stage 7 and its
+    E from stage 8 on, as in the plain chain, and nowhere else; the other
+    robots' outputs within 1e-10 (1 + |ref|)."""
+    Qd, Mp, Q1 = _chain_inputs(5, C.model.N)
+    Qd = Qd.clone()
+    Qd[2, 7, 4, 4] = float("nan")
+    got = _emulated_chain(emulated_chain, Qd, Mp, Q1)
+    ref = tube_kernel.tube_chain_reference(Qd, Mp, Q1, C.tube)
+    for g, r, first in zip(got, ref, (8, 7)):
+        want = torch.zeros_like(r, dtype=torch.bool)
+        want[2, first:] = True
+        assert torch.equal(r.isnan(), want)
+        assert torch.equal(g.isnan(), want)
+        fin = ~want
+        assert ((g - r).abs()[fin] <= 1e-10 * (1 + r.abs()[fin])).all()
+
+
+def test_chain_source_robot_results_do_not_depend_on_their_slot(
+        emulated_chain):
+    """A permutation of the robots permutes the outputs bit for bit, and 3
+    robots launched alone equal the same robots of the full launch."""
+    args = _chain_inputs(8, C.model.N, seed=9)
+    full = _emulated_chain(emulated_chain, *args)
+    for idx in (torch.randperm(8, generator=torch.Generator().manual_seed(4)),
+                torch.tensor([1, 4, 7])):
+        got = _emulated_chain(emulated_chain, *(a[idx] for a in args))
+        for g, r in zip(got, full):
+            assert torch.equal(g, r[idx])
+
+
+_LIBM = ctypes.CDLL(ctypes.util.find_library("m"))
+_LIBM.powf.argtypes, _LIBM.powf.restype = [ctypes.c_float] * 2, ctypes.c_float
+_LIBM.pow.argtypes, _LIBM.pow.restype = [ctypes.c_double] * 2, ctypes.c_double
+
+
+def _sum9(x):
+    """A 9-term diagonal's sum as torch's reduction adds it on the card."""
+    return ((((x[..., 0] + x[..., 8]) + x[..., 4]) + (x[..., 2] + x[..., 6]))
+            + ((x[..., 1] + x[..., 5]) + (x[..., 3] + x[..., 7])))
+
+
+def _sum3(x):
+    return (x[..., 0] + x[..., 2]) + x[..., 1]
+
+
+def _fma_chain(a, b, k0, k1):
+    acc = a[..., k0] * b[..., k0]
+    for k in range(k0 + 1, k1):
+        acc = rounding.fma(a[..., k], b[..., k], acc)
+    return acc
+
+
+def _card_order_chain(Qd, Mp, Q1, eps2):
+    """The plain chain with its sums in the order its library calls take on
+    the H100 at B = 4096 and B = 1 (csrc/tube_chain.cu's header), every
+    other operation rounded on its own; sqrt correctly rounded and pow
+    libm's, as the source's CPU build calls them."""
+    dt = Q1.dtype
+    f32 = dt == torch.float32
+    B, N = Q1.shape[0], Q1.shape[1]
+    powf = _LIBM.powf if f32 else _LIBM.pow
+
+    def mink(P, Q, tr):
+        beta = rounding.sqrt(tr(P.diagonal(dim1=-2, dim2=-1))
+                             / tr(Q.diagonal(dim1=-2, dim2=-1)))
+        beta = beta[..., None, None]
+        return (1.0 + 1.0 / beta) * P + (1.0 + beta) * Q
+
+    Q_init = (eps2 * torch.eye(9, dtype=dt)).expand(B, 9, 9)
+    Q2 = []
+    for i in range(N):
+        Qu = mink(Q_init, Qd[:, i], _sum9)
+        A = Mp[:, i, 0:3]                                  # (B, 3, 9)
+        a, q = A[:, :, None, :], Qu.transpose(-1, -2)[:, None]
+        W = (_fma_chain(a, q, 0, 5) + _fma_chain(a, q, 5, 9) if f32
+             else _fma_chain(a, q, 0, 9))                  # (B, 3, 9)
+        w, m = W[:, :, None, :], A[:, None, :, :]
+        if f32:
+            acc = w[..., 0] * m[..., 0]
+            for k in range(1, 9):
+                acc = acc + w[..., k] * m[..., k]
+        else:
+            acc = _fma_chain(w, m, 0, 9)
+        Q2.append(acc)
+        Q_init = Qu
+    Q2 = torch.stack(Q2, dim=1)
+    Q = torch.cat([Q1[:, 0:1], mink(Q1[:, 1:], Q2[:, :-1], _sum3)], dim=1)
+    eye = torch.eye(3, dtype=dt)
+    tr = _sum3(Q.diagonal(dim1=-2, dim2=-1))[..., None, None]
+    Y = Q + (1e-12 * tr + 1e-30) * eye
+    Z = eye.expand(Q.shape)
+    for _ in range(12):
+        x = torch.abs(decomp.det3(Y) * decomp.det3(Z))
+        g = torch.tensor([powf(v, -1.0 / 6.0) for v in x.reshape(-1).tolist()],
+                         dtype=dt).reshape(x.shape)
+        g = torch.nan_to_num(g, nan=1.0, posinf=1.0, neginf=1.0)[..., None,
+                                                                  None]
+        Yn = 0.5 * (g * Y + decomp.inv3(g * Z))
+        Z = 0.5 * (g * Z + decomp.inv3(g * Y))
+        Y = Yn
+    return 0.5 * (Y + Y.transpose(-1, -2)), Q2
+
+
+@pytest.mark.parametrize("dtype", [T64, torch.float32])
+def test_chain_source_sums_in_the_cards_plain_order(emulated_chain, dtype):
+    """The source equals, bit for bit, the plain chain with its traces and
+    products summed in the order torch and cuBLAS take on the card (what
+    makes the kernel equal the plain chain there), 5 robots of 20 stages."""
+    args = _chain_inputs(5, C.model.N, dtype, seed=3)
+    got = _emulated_chain(emulated_chain, *args)
+    want = _card_order_chain(*args, C.tube.epsilon ** 2)
+    for g, w in zip(got, want):
+        assert torch.isfinite(w).all()
+        assert torch.equal(g, w), (g - w).abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_chain_kernel_matches_plain_on_cuda(dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    B, N = 4096, C.model.N
+    x, u = (torch.as_tensor(a, dtype=dtype, device="cuda")
+            for a in _points(B * N, seed=9))
+    Qd, Mp, _, Q1 = tube_kernel.tube_stage_lanes(x, u, C.model, C.tube)
+    args = (Qd.reshape(B, N, 9, 9), Mp.reshape(B, N, 9, 9),
+            Q1.reshape(B, N, 3, 3), C.tube)
+    launches = tube_kernel.CHAIN_LAUNCHES
+    got = tube_kernel.tube_chain_lanes(*args)
+    ref = tube_kernel.tube_chain_reference(*args)
+    torch.cuda.synchronize()
+    assert tube_kernel.CHAIN_LAUNCHES == launches + 1
+    for g, r in zip(got, ref):
+        assert torch.equal(g.isnan(), r.isnan())
+        fin = ~r.isnan()
+        d = (g - r).abs()[fin]
+        if dtype == torch.float64:
+            assert (d <= 1e-10 * (1 + r.abs()[fin])).all(), d.max()
+        else:
+            assert d.max().item() <= 1e-6, d.max()
