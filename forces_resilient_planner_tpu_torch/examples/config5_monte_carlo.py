@@ -135,12 +135,9 @@ def _mesh_rank(rank, world, device_type, init_method, args, done):
             res, stats = pm.monte_carlo_sweep(
                 DEFAULT_CONFIG, mesh, n_goals=args.goals,
                 n_forces=args.forces, seed=1234 + chunk)
-            parts = [[torch.empty_like(a) for _ in range(world)]
-                     for a in (res.exit_code, res.iters)]
-            dist.all_gather(parts[0], res.exit_code)
-            dist.all_gather(parts[1], res.iters)
-            if rank == 0:
-                _save(ck, chunk, torch.cat(parts[0]), torch.cat(parts[1]))
+            gathered = pm.gather_results(res)
+            if gathered is not None:
+                _save(ck, chunk, *gathered)
                 print(f"chunk {chunk}: n={int(stats.n)} "
                       f"solved={int(stats.n_solved)}", flush=True)
     finally:

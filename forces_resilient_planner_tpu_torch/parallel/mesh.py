@@ -5,14 +5,21 @@ single-process planner; scale-out is the sharded sweep (SURVEY.md section
 2.4): the scenario batch is split over the ranks of a (host, chip) device
 mesh, every rank solves its slice with the single-card tiered lane-major
 solve (tier compaction rank-local), and only the sweep statistics cross
-ranks, as all-reduces.
+ranks, as all-reduces; `gather_results` brings the answers to rank 0.
 
 One process per rank.  The caller initializes the default process group
 first (`init_group`), with the backend that follows the device: NCCL for
 "cuda", gloo for "cpu".  There is no fallback from one to the other.
+
+Spans (utils/trace.py): `sweep` (all of monte_carlo_sweep), `sweep.expand`
+(sweep_scenarios and shard_scenarios), `sweep.solve` (the rank's
+solve_scenarios), `sweep.reduce` (all_reduce_stats), `sweep.gather`
+(gather_results up to its host read, where rank 0 waits for the slowest
+rank).
 """
 from __future__ import annotations
 
+from datetime import timedelta
 from typing import Sequence
 
 import numpy as np
@@ -23,21 +30,23 @@ from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 from forces_resilient_planner_tpu_torch.config import PlannerConfig
 from forces_resilient_planner_tpu_torch.engine import batch as batch_mod
 from forces_resilient_planner_tpu_torch.solver import ipm_lanes
+from forces_resilient_planner_tpu_torch.utils import trace
 
 BACKENDS = {"cuda": "nccl", "cpu": "gloo"}
 
 
 def init_group(device_type: str, init_method: str, world_size: int,
-               rank: int) -> None:
+               rank: int, timeout: timedelta | None = None) -> None:
     """Join the default process group with the device's backend (a "cuda"
-    rank first takes card rank % device_count)."""
+    rank first takes card rank % device_count).  `timeout` bounds the
+    rendezvous and each collective (None: torch's default)."""
     if device_type == "cuda":
         cards = torch.cuda.device_count()
         if cards == 0:
             raise RuntimeError("a cuda rank needs a card; none is visible")
         torch.cuda.set_device(rank % cards)
     dist.init_process_group(BACKENDS[device_type], init_method=init_method,
-                            world_size=world_size, rank=rank)
+                            world_size=world_size, rank=rank, timeout=timeout)
 
 
 def fold_shape(n: int, n_axes: int = 2) -> tuple:
@@ -133,8 +142,10 @@ def make_sharded_solver(cfg: PlannerConfig, mesh: DeviceMesh):
     del mesh  # the statistics reduce over the default group the mesh spans
 
     def run(local_scen: batch_mod.ScenarioSet):
-        res = batch_mod.solve_scenarios(local_scen, cfg)
-        return res, all_reduce_stats(res)
+        with trace.span("sweep.solve"):
+            res = batch_mod.solve_scenarios(local_scen, cfg)
+        with trace.span("sweep.reduce"):
+            return res, all_reduce_stats(res)
 
     return run
 
@@ -165,7 +176,28 @@ def monte_carlo_sweep(cfg: PlannerConfig, mesh: DeviceMesh, n_goals: int,
                       n_forces: int, n_corridors: int = 1, seed: int = 0,
                       dtype=torch.float32):
     """BASELINE config-5 shape: a Monte-Carlo resilience sweep over the
-    mesh.  Returns (this rank's SolveResult, SweepStats of the whole set)."""
-    scen = sweep_scenarios(cfg, mesh.size(), n_goals, n_forces, n_corridors,
-                           seed, dtype, device=mesh_device(mesh))
-    return make_sharded_solver(cfg, mesh)(shard_scenarios(scen, mesh))
+    mesh.  Every rank expands the whole set and keeps its slice.  Returns
+    (this rank's SolveResult, SweepStats of the whole set)."""
+    with trace.span("sweep"):
+        with trace.span("sweep.expand"):
+            scen = sweep_scenarios(cfg, mesh.size(), n_goals, n_forces,
+                                   n_corridors, seed, dtype,
+                                   device=mesh_device(mesh))
+            local = shard_scenarios(scen, mesh)
+        return make_sharded_solver(cfg, mesh)(local)
+
+
+def gather_results(res):
+    """Every rank's exit codes and iteration counts, in shard order, on
+    rank 0's host: (exit_code (B,), iters (B,)) CPU tensors there, None on
+    the other ranks.  One all_gather of the stacked [exit_code, iters];
+    every rank of the default group takes part."""
+    with trace.span("sweep.gather"):
+        local = torch.stack([res.exit_code, res.iters])
+        parts = [torch.empty_like(local)
+                 for _ in range(dist.get_world_size())]
+        dist.all_gather(parts, local)
+        if dist.get_rank() != 0:
+            return None
+        host = torch.cat(parts, dim=1).cpu()
+    return host[0], host[1]

@@ -3,8 +3,9 @@
 Imports torch and the port only, never JAX.  Runs torch on one thread, as
 tests/_torch_threads.py does for the in-process files (the suite's
 parallel workers share the cores), joins the group through the file in
-`init_method`, runs the sharded Monte-Carlo sweep and then the dry run's
-rank step on the same mesh, and saves what it saw to out_dir/rank{r}.pt.
+`init_method`, runs the sharded Monte-Carlo sweep, gathers its answers to
+rank 0, runs the dry run's rank step on the same mesh, and saves what it
+saw (the sweep's span counts among it) to out_dir/rank{r}.pt.
 The group is destroyed in a finally."""
 import sys
 
@@ -13,8 +14,11 @@ import torch.distributed as dist
 
 from forces_resilient_planner_tpu_torch import entry
 from forces_resilient_planner_tpu_torch.parallel import mesh as pm
+from forces_resilient_planner_tpu_torch.utils import trace
 
 SWEEP = dict(n_goals=4, n_forces=4, seed=7, dtype=torch.float64)
+SPANS = ("sweep", "sweep.expand", "sweep.solve", "sweep.reduce",
+         "sweep.gather")
 
 
 def run(rank, world, init_method, out_dir, cfg):
@@ -23,11 +27,14 @@ def run(rank, world, init_method, out_dir, cfg):
     try:
         mesh = pm.make_mesh(device_type="cpu")
         res, stats = pm.monte_carlo_sweep(cfg, mesh, **SWEEP)
+        gathered = pm.gather_results(res)
+        totals = trace.totals()
         report = entry.dryrun_step(mesh)
         torch.save({
             "rank": rank, "shard": pm.shard_index(mesh),
             "mesh": tuple(mesh.mesh.shape), "res": tuple(res),
-            "stats": tuple(stats), "dryrun": report,
+            "stats": tuple(stats), "dryrun": report, "gathered": gathered,
+            "span_counts": {n: totals.get(n, (0, 0))[0] for n in SPANS},
             "jax_loaded": sorted(m for m in sys.modules
                                  if m == "jax" or m.startswith("jax.")
                                  or m.startswith("forces_resilient_planner_tpu.")),

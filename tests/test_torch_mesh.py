@@ -7,12 +7,15 @@ JAX, each with its own join timeout) runs the sharded Monte-Carlo sweep
 of 16 scenarios and the dry run's rank step; each rank's results are held
 bit-equal to the same lanes of one single-process solve of the identical
 scenario set, and the all-reduced statistics to that solve's sweep_stats
-(n, n_solved, max_kkt_solved exactly; means within 1e-6 relative).  The
+(n, n_solved, max_kkt_solved exactly; means within 1e-6 relative).  Rank
+0's gathered answers are held to the shards and the one-process solve, the
+sweep's spans to one opening a sweep on each rank.  The
 mesh fold and the scenario set are held to the JAX module's.  Every group
 joins through a file in the test's tmp_path, never a fixed port."""
 import dataclasses
 import sys
 import time
+from datetime import timedelta
 
 import jax
 import jax.numpy as jnp
@@ -85,6 +88,42 @@ def test_two_rank_sweep_matches_one_process(two_ranks, single):
     # the ranks hold disjoint halves: their solved lanes add up
     assert sum(int((o["res"][4] == 1).sum()) for o in two_ranks) == int(
         stats1.n_solved.item())
+
+
+def test_gathered_answers_on_rank_zero(two_ranks, single):
+    """Rank 0 holds both shards' exit codes and iterations in shard order,
+    equal to the one-process solve of the same set."""
+    res1, _ = single
+    ec, it = two_ranks[0]["gathered"]
+    assert ec.device.type == "cpu" and ec.shape == it.shape == (16,)
+    assert torch.equal(ec, torch.cat([o["res"][4] for o in two_ranks]))
+    assert torch.equal(it, torch.cat([o["res"][5] for o in two_ranks]))
+    assert torch.equal(ec, res1.exit_code)
+    assert torch.equal(it, res1.iters)
+
+
+def test_other_ranks_gather_nothing(two_ranks):
+    assert two_ranks[1]["gathered"] is None
+
+
+@pytest.mark.parametrize("name", worker.SPANS)
+def test_sweep_spans_open_once_a_sweep(two_ranks, name):
+    for out in two_ranks:
+        assert out["span_counts"][name] == 1, (out["rank"], name)
+
+
+def test_init_group_passes_its_timeout(tmp_path, monkeypatch):
+    seen = {}
+
+    def record(backend, **kw):
+        seen.update(kw, backend=backend)
+
+    monkeypatch.setattr(pm.dist, "init_process_group", record)
+    limit = timedelta(seconds=42)
+    pm.init_group("cpu", f"file://{tmp_path}/rendezvous", 1, 0, timeout=limit)
+    assert seen["backend"] == "gloo" and seen["timeout"] == limit
+    pm.init_group("cpu", f"file://{tmp_path}/rendezvous", 1, 0)
+    assert seen["timeout"] is None
 
 
 def test_two_rank_dryrun_step(two_ranks):
