@@ -28,7 +28,9 @@ CUDA kernel against its plain PyTorch version on the card:
   through K1, K2, the tube chain and K3;
   slice 5, the surfaces and scale-out: the FORCES API (solver/
   forces_api.py, B = 1 of the lane-major solver through K1, and K4 under a
-  predictor-corrector configuration), the sharded solve of parallel/
+  predictor-corrector configuration; its graph route bit for bit equal to
+  its eager route, one replay of the info struct's graph a solve), the
+  sharded solve of parallel/
   mesh.py in a world of one NCCL rank, BASELINE config 5's 102,400-
   scenario sweep through the ported example, interrupted after 8
   checkpointed chunks and resumed in a fresh process, and entry.py's
@@ -1897,17 +1899,43 @@ def stack_out(out):
     return np.stack([out[f"x{i + 1:02d}"] for i in range(forces_api.N)])
 
 
+FORCES_INFO_FIELDS = ("it", "fevalstime", "res_eq", "res_ineq", "rdgap",
+                      "pobj")
+
+
+def same_forces_answer(got, want) -> bool:
+    """Outputs, exit flag and the six info fields besides solvetime, bit
+    for bit."""
+    (out_g, flag_g, info_g), (out_w, flag_w, info_w) = got, want
+    return (flag_g == flag_w
+            and all(out_g[k].tobytes() == out_w[k].tobytes() for k in out_w)
+            and all(np.float64(getattr(info_g, f)).tobytes()
+                    == np.float64(getattr(info_w, f)).tobytes()
+                    for f in FORCES_INFO_FIELDS))
+
+
 def forces_solve(params, profile, dtype, device, cfg=DEFAULT_CONFIG):
     """One ForcesSolver solve on a copy of params: (Z (N, 17), exitflag,
-    info, launch_counts(), host-loop steps)."""
+    info, launch_counts(), host-loop steps).  On the card the solve takes
+    the graph route: it must replay the info struct's graph once and give
+    the eager route's bits (solved again after the counts are read)."""
     params = dataclasses.replace(
         params, xinit=params.xinit.copy(), x0=params.x0.copy(),
         all_parameters=params.all_parameters.copy())
     solver = forces_api.ForcesSolver(profile, cfg, dtype, device=device)
     reset_counts()
-    out, flag, info = solver.solve(params)
+    replays = forces_api.GRAPH_REPLAYS
+    got = solver.solve(params)
     torch.cuda.synchronize()
-    return stack_out(out), flag, info, launch_counts(), ipm_lanes.STEPS
+    counts, steps = launch_counts(), ipm_lanes.STEPS
+    if torch.device(device).type == "cuda":
+        replays = forces_api.GRAPH_REPLAYS - replays
+        if not (replays == 1
+                and same_forces_answer(got, solver._solve_eager(params))):
+            fail(f"FORCES API {profile} {dtype}: the graph route ({replays} "
+                 f"replays) differs from the eager route")
+    out, flag, info = got
+    return stack_out(out), flag, info, counts, steps
 
 
 def check_forces_api(dev, card):
@@ -1981,21 +2009,25 @@ def check_forces_api(dev, card):
         fail(f"FORCES API predictor-corrector: exitflag {fpc}, launches "
              f"{cnt} vs {steps} steps")
 
-    # ms per solve, p50 of 20, the migration problem
-    times = {}
-    for dtype in (torch.float32, torch.float64):
-        solver = forces_api.ForcesSolver("normal", DEFAULT_CONFIG, dtype,
-                                         device=dev)
-        ms = []
-        for _ in range(21):
-            t0 = time.perf_counter()
-            solver.solve(problems["migration"])
-            ms.append(1e3 * (time.perf_counter() - t0))
-        times[dtype] = np.percentile(ms[1:], 50), np.percentile(ms[1:], 99)
-    say(f"phase 14 FORCES API migration solve [{card}]: f32 p50 "
-        f"{times[torch.float32][0]:.3f} ms (p99 {times[torch.float32][1]:.3f})"
-        f", f64 p50 {times[torch.float64][0]:.3f} ms (p99 "
-        f"{times[torch.float64][1]:.3f}) over 20 solves")
+    # ms per solve, p50 of 20, the migration problem, on each route (on
+    # the CPU both are the eager route)
+    for route in ("solve", "_solve_eager"):
+        times = {}
+        for dtype in (torch.float32, torch.float64):
+            solver = forces_api.ForcesSolver("normal", DEFAULT_CONFIG, dtype,
+                                             device=dev)
+            ms = []
+            for _ in range(21):
+                t0 = time.perf_counter()
+                getattr(solver, route)(problems["migration"])
+                ms.append(1e3 * (time.perf_counter() - t0))
+            times[dtype] = (np.percentile(ms[1:], 50),
+                            np.percentile(ms[1:], 99))
+        say(f"phase 14 FORCES API migration solve, {route} [{card}]: f32 p50 "
+            f"{times[torch.float32][0]:.3f} ms (p99 "
+            f"{times[torch.float32][1]:.3f}), f64 p50 "
+            f"{times[torch.float64][0]:.3f} ms (p99 "
+            f"{times[torch.float64][1]:.3f}) over 20 solves")
 
 
 def check_sharded(dev, card):

@@ -25,15 +25,25 @@ The structs stay numpy (the reference's flat host layout); a solve runs as
 B = 1 of the lane-major solver (solver/ipm_lanes.py), so on a CUDA device
 every monotone iteration is one launch of the IPM kernel (K1) and a
 predictor-corrector configuration launches the Riccati kernels (K4a, K4b).
+
+Around that solve, a card's route issues little: the structs go over in
+one copy of one staged buffer, the info struct (residuals, cost) is one
+replay of a CUDA graph captured at the instance's first solve, and the
+answers come back in one copy and one wait.  It gives the same bits as
+the eager route, which issues each operation on its own and is what the
+CPU runs.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import math
 import time
 from typing import Dict, Tuple
 
 import numpy as np
 import torch
+from torch.overrides import TorchFunctionMode
 
 from forces_resilient_planner_tpu_torch.config import (
     DEFAULT_CONFIG,
@@ -150,11 +160,11 @@ def pack_warm_start(params: ForcesParams, Z: np.ndarray) -> None:
     params.x0[:] = np.asarray(Z, float).reshape(X0_TOTAL)
 
 
-def unpack_params(
+def _param_arrays(
     params: ForcesParams, cfg: PlannerConfig, final: bool,
-    dtype=torch.float64, *, device,
-) -> Tuple[torch.Tensor, nlp.NLPParams]:
-    """FORCES parameter block -> (Z0 (N, 17), NLPParams) on `device`.
+) -> Dict[str, np.ndarray]:
+    """The FORCES structs as the solver's inputs, float64 numpy, keyed and
+    ordered as _STAGED.
 
     The weights travel IN the parameter block (slots 6-8), so the stage
     weight table is built from them, not from the config; the implicit
@@ -171,22 +181,214 @@ def unpack_params(
         w_vel[-1] = cfg.weights.final_brake_factor * w_wp[-1]
     w_uprev0 = np.zeros(N)
     w_uprev0[0] = cfg.weights.stage1_uprev_factor * w_in[0]
+    return dict(
+        xinit=params.xinit,
+        x0=params.x0,
+        ref_pos=ap[:, 0:3],
+        ref_yaw=ap[:, 9],
+        f_ext=ap[0, 3:6],
+        corridor_A=ap[:, NUM_PRE_PARAMS:NUM_PRE_PARAMS + 3 * NH].reshape(
+            N, NH, 3),
+        corridor_b=ap[:, NUM_PRE_PARAMS + 3 * NH:],
+        w_wp=w_wp, w_input=w_in, w_rate=w_rate, w_vel=w_vel,
+        w_uprev0=w_uprev0,
+    )
 
+
+def _nlp_of(f: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, nlp.NLPParams]:
+    """(Z0 (N, 17), NLPParams) of _param_arrays' fields as tensors."""
+    return f["x0"].reshape(N, NVAR), nlp.NLPParams(
+        xinit=f["xinit"],
+        ref_pos=f["ref_pos"],
+        ref_yaw=f["ref_yaw"],
+        f_ext=f["f_ext"],
+        corridor_A=f["corridor_A"],
+        corridor_b=f["corridor_b"],
+        weights=nlp.StageWeights(*(f[k] for k in nlp.StageWeights._fields)),
+    )
+
+
+def unpack_params(
+    params: ForcesParams, cfg: PlannerConfig, final: bool,
+    dtype=torch.float64, *, device,
+) -> Tuple[torch.Tensor, nlp.NLPParams]:
+    """FORCES parameter block -> (Z0 (N, 17), NLPParams) on `device`, a
+    tensor a field (see _param_arrays)."""
     def t(a):
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
 
-    p = nlp.NLPParams(
-        xinit=t(params.xinit),
-        ref_pos=t(ap[:, 0:3]),
-        ref_yaw=t(ap[:, 9]),
-        f_ext=t(ap[0, 3:6]),
-        corridor_A=t(
-            ap[:, NUM_PRE_PARAMS:NUM_PRE_PARAMS + 3 * NH].reshape(N, NH, 3)),
-        corridor_b=t(ap[:, NUM_PRE_PARAMS + 3 * NH:]),
-        weights=nlp.StageWeights(*(t(a) for a in (
-            w_wp, w_in, w_rate, w_vel, w_uprev0))),
+    return _nlp_of(
+        {k: t(a) for k, a in _param_arrays(params, cfg, final).items()})
+
+
+# ---------------------------------------------------------------------------
+# the card's route: one copy in, the info struct as one graph replay, one
+# copy out
+# ---------------------------------------------------------------------------
+
+GRAPH_REPLAYS = 0       # solves whose info struct ran as a CUDA-graph replay
+
+# One solve's inputs as staged, in order: (field, shape).  Each field
+# starts on a _FIELD_ALIGN-byte boundary, as a fresh allocation does, so
+# every kernel sees the same alignment as in the eager route.
+_STAGED = (
+    ("xinit", (NX,)),
+    ("x0", (N, NVAR)),
+    ("ref_pos", (N, 3)),
+    ("ref_yaw", (N,)),
+    ("f_ext", (3,)),
+    ("corridor_A", (N, NH, 3)),
+    ("corridor_b", (N, NH)),
+    *((name, (N,)) for name in nlp.StageWeights._fields),
+)
+_FIELD_ALIGN = 512
+# the packed info tensor: Z, then these, all in the solver's dtype
+_PACKED = ("it", "exitflag", "res_eq", "res_ineq", "rdgap", "pobj")
+
+
+class _Staged:
+    """One solve's inputs in one buffer of the solver's dtype.  numpy casts
+    the structs into a host copy (pinned on a card; the cast rounds to
+    nearest, as torch.as_tensor's does), one copy moves it to a static
+    device buffer, and the solver reads views of that buffer (`Z0`, `p`)."""
+
+    def __init__(self, dtype, device: torch.device):
+        step = _FIELD_ALIGN // torch.empty((), dtype=dtype).element_size()
+        self.slots, size = {}, 0     # name -> (offset, size, shape)
+        for name, shape in _STAGED:
+            n = math.prod(shape)
+            self.slots[name] = (size, n, shape)
+            size += -(-n // step) * step
+        self.host = torch.zeros(size, dtype=dtype,
+                                pin_memory=device.type == "cuda")
+        self.dev = torch.zeros(size, dtype=dtype, device=device)
+        self._host_np = self.host.numpy()
+        self.Z0, self.p = _nlp_of({
+            name: self.dev[o:o + n].view(shape)
+            for name, (o, n, shape) in self.slots.items()
+        })
+
+    def load(self, arrays: Dict[str, np.ndarray]) -> None:
+        """Stage _param_arrays' output; the copy to the device is queued
+        on the current stream (the solve that reads it follows there).
+        The host buffer is free to write: every solve ends in a wait."""
+        for name, (o, n, _) in self.slots.items():
+            self._host_np[o:o + n] = np.asarray(arrays[name]).reshape(n)
+        self.dev.copy_(self.host, non_blocking=True)
+
+
+def packed_info(Z, iters, exit_code, kkt_error, p: nlp.NLPParams, lb, ub,
+                mcfg, scfg) -> torch.Tensor:
+    """[Z (N * 17) | _PACKED] in Z's dtype: the eager route's info struct
+    (ForcesSolver._solve_eager), each field by the same operations, with
+    iters, exit_code and kkt_error the solve's (1,) results."""
+    H = nlp.stage_hessians(p.weights, mcfg, Z.dtype)
+    c = nlp.dynamics_residuals(Z, p, mcfg)
+    g = nlp.inequality_residuals(Z, p, lb, ub, scfg.corridor_slack)
+    return torch.cat([
+        Z.reshape(-1), iters.to(Z.dtype), exit_code.to(Z.dtype),
+        c.abs().max()[None], g.clamp(min=0.0).max()[None], kkt_error,
+        nlp.cost_value(Z, p, H)[None],
+    ])
+
+
+def _unpacked(h: np.ndarray, solvetime: float):
+    """(out, exitflag, ForcesInfo) of packed_info's values on the host."""
+    Z = h[:X0_TOTAL].astype(np.float64).reshape(N, NVAR)
+    v = dict(zip(_PACKED, (float(x) for x in h[X0_TOTAL:])))
+    info = ForcesInfo(
+        it=int(v["it"]), solvetime=solvetime, fevalstime=0.0,
+        res_eq=v["res_eq"], res_ineq=v["res_ineq"], rdgap=v["rdgap"],
+        pobj=v["pobj"],
     )
-    return t(params.x0).reshape(N, NVAR), p
+    return ({f"x{i + 1:02d}": Z[i] for i in range(N)}, int(v["exitflag"]),
+            info)
+
+
+class _HeldConstants(TorchFunctionMode):
+    """Keeps the tensors that `torch.tensor` makes while active, and hands
+    them back in the same order inside `replaying()`.  A graph capture may
+    not copy from pageable host memory, and the info struct's dynamics
+    (dynamics/quadrotor.py::continuous_dynamics) build their drag vector
+    with `torch.tensor`: the capture reuses the warm-up's device copy,
+    which holds the same values."""
+
+    def __init__(self):
+        super().__init__()
+        self.made, self._next = [], None
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if func is not torch.tensor:
+            return func(*args, **kwargs)
+        if self._next is None:
+            t = func(*args, **kwargs)
+            self.made.append((args, kwargs, t))
+            return t
+        made_args, made_kwargs, t = self.made[self._next]
+        if (made_args, made_kwargs) != (args, kwargs):
+            raise RuntimeError(
+                f"torch.tensor{args} in the capture, not as in the warm-up")
+        self._next += 1
+        return t
+
+    @contextlib.contextmanager
+    def replaying(self):
+        self._next = 0
+        try:
+            with self:
+                yield
+        finally:
+            self._next = None
+
+
+class _InfoGraph:
+    """packed_info over static inputs, captured once as a CUDA graph after
+    one eager warm-up.  `run(res)` copies a solve's result into the inputs,
+    replays the graph and brings the packed tensor to pinned host memory
+    with one wait."""
+
+    def __init__(self, p: nlp.NLPParams, lb, ub, mcfg, scfg, dtype,
+                 device: torch.device):
+        self.Z = torch.zeros((N, NVAR), dtype=dtype, device=device)
+        self.iters = torch.zeros(1, dtype=torch.int32, device=device)
+        self.exit_code = torch.zeros(1, dtype=torch.int32, device=device)
+        self.kkt = torch.zeros(1, dtype=dtype, device=device)
+        self.host = torch.zeros(X0_TOTAL + len(_PACKED), dtype=dtype,
+                                pin_memory=True)
+        # the graph reads these tensors' memory: hold every one of them
+        self.args = args = (self.Z, self.iters, self.exit_code, self.kkt, p,
+                            lb, ub, mcfg, scfg)
+        self.consts = _HeldConstants()
+        # warm-up and capture on one side stream (one more cuBLAS
+        # workspace); unlike torch.cuda.graph, no gc.collect or
+        # empty_cache first: the graph needs a few kB
+        stream = torch.cuda.current_stream(device)
+        side = torch.cuda.Stream(device)
+        side.wait_stream(stream)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(side):
+            with self.consts:
+                packed_info(*args)
+            with self.consts.replaying():
+                self.graph.capture_begin()
+                try:
+                    self.out = packed_info(*args)
+                finally:
+                    self.graph.capture_end()
+        stream.wait_stream(side)
+
+    def run(self, res: ipm_lanes.SolveResult) -> np.ndarray:
+        global GRAPH_REPLAYS
+        self.Z.copy_(res.Z[0])
+        self.iters.copy_(res.iters)
+        self.exit_code.copy_(res.exit_code)
+        self.kkt.copy_(res.kkt_error)
+        self.graph.replay()
+        GRAPH_REPLAYS += 1
+        self.host.copy_(self.out, non_blocking=True)
+        torch.cuda.current_stream(self.out.device).synchronize()
+        return self.host.numpy()
 
 
 class ForcesSolver:
@@ -217,6 +419,8 @@ class ForcesSolver:
         self.dtype = dtype
         self.device = torch.device("cuda" if device is None else device)
         self._pending_weights = None
+        self._staged = None     # the card's route: _Staged, _InfoGraph
+        self._info = None
 
     def set_params(self, *weights) -> None:
         """Kept for call-site parity; weights are read from the parameter
@@ -226,36 +430,64 @@ class ForcesSolver:
     def solve(
         self, params: ForcesParams
     ) -> Tuple[Dict[str, np.ndarray], int, ForcesInfo]:
+        """Solve one packed problem: (outputs, exitflag, info).  On a card
+        the inputs go over in one copy and the info struct is one graph
+        replay (_solve_graphed); elsewhere every operation is issued on its
+        own (_solve_eager).  Both give the same bits."""
         with trace.span("api"):
             if self._pending_weights is not None:
                 set_stage_weights(params, *self._pending_weights)
                 self._pending_weights = None
-            mcfg, scfg = self.cfg.model, self.cfg.solver
-            Z0, p = unpack_params(
-                params, self.cfg, final=(self.profile == "final"),
-                dtype=self.dtype, device=self.device,
-            )
-            t0 = time.perf_counter()
-            res = ipm_lanes.solve_batch_lanes_tiered(
-                Z0[None], ipm_lanes._map_params(lambda a: a[None], p), mcfg,
-                scfg,
-            )
-            Zt = res.Z[0]
-            Z = Zt.cpu().double().numpy()
-            dt = time.perf_counter() - t0
+            if self.device.type == "cuda":
+                return self._solve_graphed(params)
+            return self._solve_eager(params)
 
-            out = {f"x{i + 1:02d}": Z[i] for i in range(N)}
-            H = nlp.stage_hessians(p.weights, mcfg, self.dtype)
-            c = nlp.dynamics_residuals(Zt, p, mcfg)
+    def _solve_graphed(self, params: ForcesParams):
+        mcfg, scfg = self.cfg.model, self.cfg.solver
+        if self._staged is None:
+            self._staged = _Staged(self.dtype, self.device)
+        staged = self._staged
+        staged.load(_param_arrays(params, self.cfg,
+                                  final=(self.profile == "final")))
+        t0 = time.perf_counter()
+        res = ipm_lanes.solve_batch_lanes_tiered(
+            staged.Z0[None],
+            ipm_lanes._map_params(lambda a: a[None], staged.p), mcfg, scfg,
+        )
+        if self._info is None:
             lb, ub = nlp.variable_bounds(mcfg, self.dtype, device=self.device)
-            g = nlp.inequality_residuals(Zt, p, lb, ub, scfg.corridor_slack)
-            info = ForcesInfo(
-                it=int(res.iters[0]),
-                solvetime=dt,
-                fevalstime=0.0,
-                res_eq=float(c.abs().max()),
-                res_ineq=float(g.clamp(min=0.0).max()),
-                rdgap=float(res.kkt_error[0]),
-                pobj=float(nlp.cost_value(Zt, p, H)),
-            )
-            return out, int(res.exit_code[0]), info
+            self._info = _InfoGraph(staged.p, lb, ub, mcfg, scfg, self.dtype,
+                                    self.device)
+        h = self._info.run(res)
+        return _unpacked(h, time.perf_counter() - t0)
+
+    def _solve_eager(self, params: ForcesParams):
+        mcfg, scfg = self.cfg.model, self.cfg.solver
+        Z0, p = unpack_params(
+            params, self.cfg, final=(self.profile == "final"),
+            dtype=self.dtype, device=self.device,
+        )
+        t0 = time.perf_counter()
+        res = ipm_lanes.solve_batch_lanes_tiered(
+            Z0[None], ipm_lanes._map_params(lambda a: a[None], p), mcfg,
+            scfg,
+        )
+        Zt = res.Z[0]
+        Z = Zt.cpu().double().numpy()
+        dt = time.perf_counter() - t0
+
+        out = {f"x{i + 1:02d}": Z[i] for i in range(N)}
+        H = nlp.stage_hessians(p.weights, mcfg, self.dtype)
+        c = nlp.dynamics_residuals(Zt, p, mcfg)
+        lb, ub = nlp.variable_bounds(mcfg, self.dtype, device=self.device)
+        g = nlp.inequality_residuals(Zt, p, lb, ub, scfg.corridor_slack)
+        info = ForcesInfo(
+            it=int(res.iters[0]),
+            solvetime=dt,
+            fevalstime=0.0,
+            res_eq=float(c.abs().max()),
+            res_ineq=float(g.clamp(min=0.0).max()),
+            rdgap=float(res.kkt_error[0]),
+            pobj=float(nlp.cost_value(Zt, p, H)),
+        )
+        return out, int(res.exit_code[0]), info
