@@ -41,6 +41,15 @@ def euler_to_rot(rpy: torch.Tensor) -> torch.Tensor:
     )
 
 
+def _times_drag(a: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """a's last axis times D = (d, d, 0), the drag coefficients (a vector
+    v: D * v; a matrix M: M @ diag(D)).  Each product is with a Python
+    scalar, so no constant is copied to the device: a CUDA graph capture
+    refuses a copy from pageable host memory."""
+    d = cfg.drag_coeff
+    return torch.stack([d * a[..., 0], d * a[..., 1], 0.0 * a[..., 2]], dim=-1)
+
+
 def continuous_dynamics(
     x: torch.Tensor, u: torch.Tensor, f_ext: torch.Tensor, cfg: ModelConfig
 ) -> torch.Tensor:
@@ -49,12 +58,9 @@ def continuous_dynamics(
     R = euler_to_rot(x[..., 6:9])
     z_b = R[..., :, 2]
     thrust = u[..., 3]
-    drag = torch.tensor(
-        [cfg.drag_coeff, cfg.drag_coeff, 0.0], dtype=x.dtype, device=x.device
-    )
     # drag_acc = R diag(d) R^T v
     v_body = sum_dim(R * vel[..., :, None], -2)
-    drag_acc = sum_dim(R * (drag * v_body)[..., None, :], -1)
+    drag_acc = sum_dim(R * _times_drag(v_body, cfg)[..., None, :], -1)
     g_vec = torch.zeros_like(vel)
     g_vec[..., 2] = cfg.g
     acc = z_b * (thrust[..., None] / cfg.mass) + f_ext - g_vec - drag_acc
@@ -139,17 +145,14 @@ def continuous_jacobians_analytic(
     dR_p = _mm3(Rz, _mm3(dRy, Rx))
     dR_y = _mm3(dRz, _mm3(Ry, Rx))
 
-    D = torch.tensor(
-        [cfg.drag_coeff, cfg.drag_coeff, 0.0], dtype=dtype, device=device
-    )
-    RD = R * D[..., None, :]                       # R @ diag(D)
+    RD = _times_drag(R, cfg)                        # R @ diag(D)
     Rt = R.transpose(-1, -2)
     RDRt = _mm3(RD, Rt)
     Tm = (u[..., 3] / cfg.mass)[..., None]
 
     cols = []
     for dR in (dR_r, dR_p, dR_y):
-        dRDRt = _mm3(dR * D[..., None, :], Rt) + _mm3(RD, dR.transpose(-1, -2))
+        dRDRt = _mm3(_times_drag(dR, cfg), Rt) + _mm3(RD, dR.transpose(-1, -2))
         cols.append(dR[..., :, 2] * Tm - sum_dim(dRDRt * vel[..., None, :], -1))
     dv_drpy = torch.stack(cols, dim=-1)            # (..., 3, 3)
 

@@ -10,6 +10,13 @@ source, a header or the flags change (the file name carries their hash).
 raises RuntimeError: there is no fallback.  `register_prebuilt` hands
 `load` a library built elsewhere (utils/aot.py's shipped solver), which it
 then loads without building anything.
+
+This module is also the one way to reach a kernel.  A wrapper of ops/ sends
+a CPU tensor to its plain version, checks its own argument rules, calls
+`route` (each tensor's shape, dtype, device and contiguity, the refusal of
+a device other than CUDA, the library) and `on_stream` (its `launch`, which
+hands the return code to `check`), and counts the launch.  A new kernel
+costs its `_bind`, its `launch` and a call of each.
 """
 from __future__ import annotations
 
@@ -21,6 +28,8 @@ import subprocess
 import time
 from pathlib import Path
 from typing import Callable, NamedTuple
+
+import torch
 
 from forces_resilient_planner_tpu_torch.utils import trace
 
@@ -161,3 +170,44 @@ def load(source: str, bind: Callable[[ctypes.CDLL], None]) -> ctypes.CDLL:
             bind(lib)
             _libs[source] = lib
     return _libs[source]
+
+
+# the dtypes every kernel of ops/csrc/ is instantiated for
+DTYPES = (torch.float32, torch.float64)
+
+
+def route(source: str, bind: Callable, named) -> ctypes.CDLL:
+    """The device route's checks, then the library of `source` (`load`).
+    named: (name, tensor, shape[, dtype]) for each tensor a kernel reads;
+    the first sets the dtype, one of DTYPES, and the device of all; a
+    fourth entry gives a tensor its own dtype."""
+    dtype, device = named[0][1].dtype, named[0][1].device
+    if dtype not in DTYPES:
+        raise ValueError(f"the CUDA kernels take float32 or float64, not {dtype}")
+    for name, t, shape, *own in named:
+        want = own[0] if own else dtype
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
+        if t.dtype != want or t.device != device:
+            raise ValueError(
+                f"{name}: {t.dtype} on {t.device}, expected {want} on {device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: the kernels take contiguous tensors only")
+    if device.type != "cuda":
+        raise ValueError(f"no route for tensors on {device}")
+    return load(source, bind)
+
+
+def on_stream(device: torch.device, launch: Callable, *args, **kwargs):
+    """launch(*args, stream, **kwargs) with `device` current and `stream`
+    the handle of its current stream; returns what launch returns."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        return launch(*args, stream, **kwargs)
+
+
+def check(rc: int, kernel: str, **context) -> None:
+    """Raise RuntimeError if a launch returned a CUDA error (rc != 0)."""
+    if rc != 0:
+        raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {rc}"
+                           + (f" {context}" if context else ""))

@@ -121,10 +121,8 @@ def launch(lib, p1, p2, obs, obs_mask, ccfg: CorridorConfig, nh: int, stream,
         b.data_ptr(), scratch.data_ptr() if geo.scratch else None,
         geo.scratch, stream,
     )
-    if rc != 0:
-        raise RuntimeError(
-            f"corridor kernel launch failed: CUDA error {rc} (route "
-            f"{ROUTES.get(geo.route, geo.route)}, M = {M}, K = {k}: {geo})")
+    _build.check(rc, "corridor", route=ROUTES.get(geo.route, geo.route),
+                 M=M, K=k, geometry=geo)
     return A, b, geo
 
 
@@ -212,29 +210,16 @@ def decompose_stages_lanes(p1, p2, obs, obs_mask, ccfg: CorridorConfig,
     and the call counts one launch under that route in LAUNCHES."""
     if p1.device.type == "cpu":
         return decompose_stages_reference(p1, p2, obs, obs_mask, ccfg, nh)
-    if p1.device.type != "cuda":
-        raise ValueError(f"no route for tensors on {p1.device}")
-    if p1.dtype not in _ENTRY:
-        raise ValueError(f"the CUDA kernel takes float32 or float64, not {p1.dtype}")
     B, N = p1.shape[0], p1.shape[1]
     M = obs.shape[1]
-    for name, t, shape, dtype in (
-        ("p1", p1, (B, N, 3), p1.dtype), ("p2", p2, (B, N, 3), p1.dtype),
-        ("obs", obs, (B, M, 3), p1.dtype),
-        ("obs_mask", obs_mask, (B, M), torch.bool),
-    ):
-        if tuple(t.shape) != shape or t.dtype != dtype or t.device != p1.device:
-            raise ValueError(f"{name}: {tuple(t.shape)} {t.dtype} on {t.device}, "
-                             f"expected {shape} {dtype} on {p1.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: the kernel takes contiguous tensors only")
     if B == 0 or N == 0 or M == 0:
         raise ValueError(f"need B, N, M >= 1, got {B}, {N}, {M}")
     if nh < ccfg.max_obs_planes + WALLS:
         raise ValueError(f"nh = {nh} < max_obs_planes + {WALLS}")
-    lib = _build.load(SOURCE, _bind)
-    with torch.cuda.device(p1.device):
-        A, b, geo = launch(lib, p1, p2, obs, obs_mask, ccfg, nh,
-                           torch.cuda.current_stream(p1.device).cuda_stream)
+    lib = _build.route(SOURCE, _bind, [
+        ("p1", p1, (B, N, 3)), ("p2", p2, (B, N, 3)), ("obs", obs, (B, M, 3)),
+        ("obs_mask", obs_mask, (B, M), torch.bool)])
+    A, b, geo = _build.on_stream(p1.device, launch, lib, p1, p2, obs,
+                                 obs_mask, ccfg, nh)
     LAUNCHES[ROUTES[geo.route]] += 1
     return A, b

@@ -146,18 +146,6 @@ def ipm_iteration_reference(
     return Zn, lamn, sn, mudn, torch.stack([mu, it, done.to(Z.dtype), err])
 
 
-def _check_inputs(named, dtype, device):
-    for name, t, shape in named:
-        if tuple(t.shape) != shape:
-            raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
-        if t.dtype != dtype or t.device != device:
-            raise ValueError(
-                f"{name}: {t.dtype} on {t.device}, expected {dtype} on {device}"
-            )
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: the kernel takes contiguous tensors only")
-
-
 def ipm_iteration_fused(
     Z, lam, s, mu_d, scal,          # lane-major state; scal (4, B)
     weights: nlp.StageWeights,      # (N, B) tables
@@ -181,31 +169,21 @@ def ipm_iteration_fused(
             "the CUDA kernel implements mu_superlin == 1.5 (mu * sqrt(mu)) "
             f"only, got {scfg.mu_superlin}"
         )
-    if Z.dtype not in _CONSTS:
-        raise ValueError(f"the CUDA kernel takes float32 or float64, not {Z.dtype}")
     N, _, B = Z.shape
     if B == 0 or N < 2:
         raise ValueError(f"need N >= 2 stages and B >= 1 lanes, got {N}, {B}")
-    ins = [Z, lam, s, mu_d, scal, *weights, ref_pos, ref_yaw, A, b, f_ext,
-           xinit, max_iters_lane]
-    names = ["Z", "lam", "s", "mu_d", "scal", *nlp.StageWeights._fields,
-             "ref_pos", "ref_yaw", "A", "b", "f_ext", "xinit",
-             "max_iters_lane"]
-    shapes = (
-        [(N, NZ, B), (N, NXB, B), (N, NIN, B), (N, NIN, B), (4, B)]
-        + [(N, B)] * 5
-        + [(N, 3, B), (N, B), (N, NH, 3, B), (N, NH, B), (3, B), (9, B), (B,)]
-    )
-    _check_inputs(zip(names, ins, shapes), Z.dtype, Z.device)
-    launch_geometry(Z.dtype, N)
-    if Z.device.type != "cuda":
-        raise ValueError(f"no route for tensors on {Z.device}")
-
-    lib = _build.load(SOURCE, _bind)
+    named = [("Z", Z, (N, NZ, B)), ("lam", lam, (N, NXB, B)),
+             ("s", s, (N, NIN, B)), ("mu_d", mu_d, (N, NIN, B)),
+             ("scal", scal, (4, B))]
+    named += [(f, t, (N, B)) for f, t in zip(nlp.StageWeights._fields, weights)]
+    named += [("ref_pos", ref_pos, (N, 3, B)), ("ref_yaw", ref_yaw, (N, B)),
+              ("A", A, (N, NH, 3, B)), ("b", b, (N, NH, B)),
+              ("f_ext", f_ext, (3, B)), ("xinit", xinit, (9, B)),
+              ("max_iters_lane", max_iters_lane, (B,))]
+    lib = _build.route(SOURCE, _bind, named)
     outs = [torch.empty_like(t) for t in (Z, lam, s, mu_d, scal)]
-    with torch.cuda.device(Z.device):
-        stream = torch.cuda.current_stream(Z.device).cuda_stream
-        launch(lib, ins, outs, mcfg, scfg, stream)
+    _build.on_stream(Z.device, launch, lib, [t for _, t, _ in named], outs,
+                     mcfg, scfg)
     LAUNCHES += 1
     return tuple(outs)
 
@@ -229,5 +207,4 @@ def launch(lib, ins, outs, mcfg: ModelConfig, scfg: SolverConfig, stream,
         (ctypes.c_void_p * N_OUTPUTS)(*(t.data_ptr() for t in outs)),
         stream,
     )
-    if rc != 0:
-        raise RuntimeError(f"ipm_iteration kernel launch failed: CUDA error {rc}")
+    _build.check(rc, "ipm_iteration")

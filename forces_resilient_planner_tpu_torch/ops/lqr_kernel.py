@@ -22,9 +22,9 @@ design, with K4's factor body and backsolve kernel; solve_lqr_lanes joins
 K5a and K5b behind solver/riccati.py::solve_lqr_batched.
 
 Route by device: a CPU tensor runs the plain version beside each wrapper
-(`*_reference`).  Any other tensor is checked (shapes, float32 or float64,
-one device, contiguity, 1 <= nh <= 30) and then launches the kernel if it
-lies on CUDA, or raises.
+(`*_reference`).  Any other tensor is checked (1 <= nh <= 30 here, the
+rest by ops/_build.py::route) and then launches the kernel if it lies on
+CUDA, or raises.
 """
 from __future__ import annotations
 
@@ -223,27 +223,6 @@ lqr_backsolve_reference = riccati.lqr_solve_ll
 # the kernels' wrappers
 # ---------------------------------------------------------------------------
 
-def _device_route(named):
-    """The checks of the device route, then the library.  named: (name,
-    tensor, expected shape) triples; the first tensor sets dtype and
-    device."""
-    dtype, device = named[0][1].dtype, named[0][1].device
-    if dtype not in _SUFFIX:
-        raise ValueError(f"the CUDA kernels take float32 or float64, not {dtype}")
-    for name, t, shape in named:
-        if tuple(t.shape) != shape:
-            raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
-        if t.dtype != dtype or t.device != device:
-            raise ValueError(
-                f"{name}: {t.dtype} on {t.device}, expected {dtype} on {device}"
-            )
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: the kernels take contiguous tensors only")
-    if device.type != "cuda":
-        raise ValueError(f"no route for tensors on {device}")
-    return _build.load(SOURCE, _bind)
-
-
 def _horizon(N: int, B: int):
     if N < 2 or B < 1:
         raise ValueError(f"need N >= 2 stages and B >= 1 lanes, got {N}, {B}")
@@ -264,7 +243,7 @@ def _check_backsolve(fac, d0, d1, c, qx, qu, dx0, d_shapes):
     named += [("dynamics[0]", d0, d_shapes[0]), ("dynamics[1]", d1, d_shapes[1]),
               ("c", c, (N - 1, NXB, B)), ("qu", qu, (N, NU, B)),
               ("dx0", dx0, (NX, B))]
-    return _device_route(named)
+    return _build.route(SOURCE, _bind, named)
 
 
 def _solution_like(qx):
@@ -296,16 +275,7 @@ def launch(lib, name: str, ins, outs, stream, scalars=(),
         (ctypes.c_void_p * len(outs))(*(t.data_ptr() for t in outs)),
         stream,
     )
-    if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
-
-
-def _launch(lib, name, ins, outs, scalars=()):
-    like = ins[0]
-    with torch.cuda.device(like.device):
-        launch(lib, name, ins, outs,
-               torch.cuda.current_stream(like.device).cuda_stream, scalars)
-    LAUNCHES[name] += 1
+    _build.check(rc, name)
 
 
 def lqr_factor_fused_lanes(w_wp, w_input, w_rate, w_vel, w_uprev0, sigma,
@@ -331,10 +301,11 @@ def lqr_factor_fused_lanes(w_wp, w_input, w_rate, w_vel, w_uprev0, sigma,
     named = [(f, t, (N, B)) for f, t in zip(nlp.StageWeights._fields, weights)]
     named += [("sigma", sigma, (N, 34 + nh, B)), ("Acor", Acor, (N, nh, 3, B)),
               ("Ax", Ax, (N - 1, NX, NX, B)), ("Bx", Bx, (N - 1, NX, NU, B))]
-    lib = _device_route(named)
+    lib = _build.route(SOURCE, _bind, named)
     fac = LQRFactor(*(sigma.new_empty(s) for s in _factor_shapes(N, B)))
-    _launch(lib, "lqr_factor_fused", [t for _, t, _ in named], fac,
-            (nh, reg, rmax2))
+    _build.on_stream(sigma.device, launch, lib, "lqr_factor_fused",
+                     [t for _, t, _ in named], fac, scalars=(nh, reg, rmax2))
+    LAUNCHES["lqr_factor_fused"] += 1
     return fac
 
 
@@ -349,7 +320,9 @@ def lqr_backsolve_fused_lanes(fac: LQRFactor, Ax, Bx, c, qx, qu,
     lib = _check_backsolve(fac, Ax, Bx, c, qx, qu, dx0,
                            ((N - 1, NX, NX, B), (N - 1, NX, NU, B)))
     sol = _solution_like(qx)
-    _launch(lib, "lqr_backsolve_fused", [*fac, Ax, Bx, c, qx, qu, dx0], sol)
+    _build.on_stream(qx.device, launch, lib, "lqr_backsolve_fused",
+                     [*fac, Ax, Bx, c, qx, qu, dx0], sol)
+    LAUNCHES["lqr_backsolve_fused"] += 1
     return sol
 
 
@@ -363,9 +336,11 @@ def lqr_factor_lanes(Q, R, S, A, B) -> LQRFactor:
     named = [("Q", Q, (N, NXB, NXB, Bn)), ("R", R, (N, NU, NU, Bn)),
              ("S", S, (N, NU, NXB, Bn)), ("A", A, (N - 1, NXB, NXB, Bn)),
              ("B", B, (N - 1, NXB, NU, Bn))]
-    lib = _device_route(named)
+    lib = _build.route(SOURCE, _bind, named)
     fac = LQRFactor(*(Q.new_empty(s) for s in _factor_shapes(N, Bn)))
-    _launch(lib, "lqr_factor", [t for _, t, _ in named], fac)
+    _build.on_stream(Q.device, launch, lib, "lqr_factor",
+                     [t for _, t, _ in named], fac)
+    LAUNCHES["lqr_factor"] += 1
     return fac
 
 
@@ -378,7 +353,9 @@ def lqr_backsolve_lanes(fac: LQRFactor, A, B, c, qx, qu, dx0) -> LQRSolution:
     lib = _check_backsolve(fac, A, B, c, qx, qu, dx0,
                            ((N - 1, NXB, NXB, Bn), (N - 1, NXB, NU, Bn)))
     sol = _solution_like(qx)
-    _launch(lib, "lqr_backsolve", [*fac, A, B, c, qx, qu, dx0], sol)
+    _build.on_stream(qx.device, launch, lib, "lqr_backsolve",
+                     [*fac, A, B, c, qx, qu, dx0], sol)
+    LAUNCHES["lqr_backsolve"] += 1
     return sol
 
 

@@ -113,8 +113,7 @@ def launch(lib, x, u, mcfg: ModelConfig, tcfg: TubeConfig, stream, K=None):
         ctypes.addressof(consts), L, N_TERMS[x.dtype], x.data_ptr(),
         u.data_ptr(), *(t.data_ptr() for t in outs), stream,
     )
-    if rc != 0:
-        raise RuntimeError(f"tube_stage kernel launch failed: CUDA error {rc}")
+    _build.check(rc, "tube_stage")
     return tuple(outs)
 
 
@@ -213,24 +212,11 @@ def tube_stage_lanes(x: torch.Tensor, u: torch.Tensor, mcfg: ModelConfig,
     global LAUNCHES
     if x.device.type == "cpu":
         return tube_stage_reference(x, u, mcfg, tcfg, K)
-    if x.device.type != "cuda":
-        raise ValueError(f"no route for tensors on {x.device}")
-    if x.dtype not in _ENTRY:
-        raise ValueError(f"the CUDA kernel takes float32 or float64, not {x.dtype}")
     L = x.shape[0]
-    for name, t, shape in (("x", x, (L, NX)), ("u", u, (L, 4))):
-        if tuple(t.shape) != shape or t.dtype != x.dtype or t.device != x.device:
-            raise ValueError(f"{name}: {tuple(t.shape)} {t.dtype} on {t.device}, "
-                             f"expected {shape} {x.dtype} on {x.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: the kernel takes contiguous tensors only")
     if L == 0:
         raise ValueError("need L >= 1 stage lanes")
-    Kt = _gain(tcfg, K)
-    lib = _build.load(SOURCE, _bind)
-    with torch.cuda.device(x.device):
-        outs = launch(lib, x, u, mcfg, tcfg,
-                      torch.cuda.current_stream(x.device).cuda_stream, Kt)
+    lib = _build.route(SOURCE, _bind, [("x", x, (L, NX)), ("u", u, (L, 4))])
+    outs = _build.on_stream(x.device, launch, lib, x, u, mcfg, tcfg, K=K)
     LAUNCHES += 1
     return outs
 
@@ -247,8 +233,7 @@ def launch_chain(lib, Qd, Mp, Q1, tcfg: TubeConfig, stream):
         B, N, ctype(tcfg.epsilon ** 2), Qd.data_ptr(), Mp.data_ptr(),
         Q1.data_ptr(), E.data_ptr(), Q2.data_ptr(), stream,
     )
-    if rc != 0:
-        raise RuntimeError(f"tube_chain kernel launch failed: CUDA error {rc}")
+    _build.check(rc, "tube_chain")
     return E, Q2
 
 
@@ -282,23 +267,12 @@ def tube_chain_lanes(Qd: torch.Tensor, Mp: torch.Tensor, Q1: torch.Tensor,
     global CHAIN_LAUNCHES
     if Q1.device.type == "cpu":
         return tube_chain_reference(Qd, Mp, Q1, tcfg)
-    if Q1.device.type != "cuda":
-        raise ValueError(f"no route for tensors on {Q1.device}")
-    if Q1.dtype not in _CHAIN_ENTRY:
-        raise ValueError(f"the CUDA kernel takes float32 or float64, not {Q1.dtype}")
     B, N = Q1.shape[0], Q1.shape[1]
-    for name, t, shape in (("Qd", Qd, (B, N, NX, NX)), ("Mp", Mp, (B, N, NX, NX)),
-                           ("Q1", Q1, (B, N, 3, 3))):
-        if tuple(t.shape) != shape or t.dtype != Q1.dtype or t.device != Q1.device:
-            raise ValueError(f"{name}: {tuple(t.shape)} {t.dtype} on {t.device}, "
-                             f"expected {shape} {Q1.dtype} on {Q1.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: the kernel takes contiguous tensors only")
     if B == 0 or N == 0:
         raise ValueError("need B >= 1 robots and N >= 1 stages")
-    lib = _build.load(CHAIN_SOURCE, _bind_chain)
-    with torch.cuda.device(Q1.device):
-        out = launch_chain(lib, Qd, Mp, Q1, tcfg,
-                           torch.cuda.current_stream(Q1.device).cuda_stream)
+    lib = _build.route(CHAIN_SOURCE, _bind_chain, [
+        ("Qd", Qd, (B, N, NX, NX)), ("Mp", Mp, (B, N, NX, NX)),
+        ("Q1", Q1, (B, N, 3, 3))])
+    out = _build.on_stream(Q1.device, launch_chain, lib, Qd, Mp, Q1, tcfg)
     CHAIN_LAUNCHES += 1
     return out

@@ -35,7 +35,6 @@ CPU runs.
 """
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import math
 import time
@@ -43,7 +42,6 @@ from typing import Dict, Tuple
 
 import numpy as np
 import torch
-from torch.overrides import TorchFunctionMode
 
 from forces_resilient_planner_tpu_torch.config import (
     DEFAULT_CONFIG,
@@ -305,43 +303,6 @@ def _unpacked(h: np.ndarray, solvetime: float):
             info)
 
 
-class _HeldConstants(TorchFunctionMode):
-    """Keeps the tensors that `torch.tensor` makes while active, and hands
-    them back in the same order inside `replaying()`.  A graph capture may
-    not copy from pageable host memory, and the info struct's dynamics
-    (dynamics/quadrotor.py::continuous_dynamics) build their drag vector
-    with `torch.tensor`: the capture reuses the warm-up's device copy,
-    which holds the same values."""
-
-    def __init__(self):
-        super().__init__()
-        self.made, self._next = [], None
-
-    def __torch_function__(self, func, types, args=(), kwargs=None):
-        kwargs = kwargs or {}
-        if func is not torch.tensor:
-            return func(*args, **kwargs)
-        if self._next is None:
-            t = func(*args, **kwargs)
-            self.made.append((args, kwargs, t))
-            return t
-        made_args, made_kwargs, t = self.made[self._next]
-        if (made_args, made_kwargs) != (args, kwargs):
-            raise RuntimeError(
-                f"torch.tensor{args} in the capture, not as in the warm-up")
-        self._next += 1
-        return t
-
-    @contextlib.contextmanager
-    def replaying(self):
-        self._next = 0
-        try:
-            with self:
-                yield
-        finally:
-            self._next = None
-
-
 class _InfoGraph:
     """packed_info over static inputs, captured once as a CUDA graph after
     one eager warm-up.  `run(res)` copies a solve's result into the inputs,
@@ -359,7 +320,6 @@ class _InfoGraph:
         # the graph reads these tensors' memory: hold every one of them
         self.args = args = (self.Z, self.iters, self.exit_code, self.kkt, p,
                             lb, ub, mcfg, scfg)
-        self.consts = _HeldConstants()
         # warm-up and capture on one side stream (one more cuBLAS
         # workspace); unlike torch.cuda.graph, no gc.collect or
         # empty_cache first: the graph needs a few kB
@@ -368,14 +328,12 @@ class _InfoGraph:
         side.wait_stream(stream)
         self.graph = torch.cuda.CUDAGraph()
         with torch.cuda.stream(side):
-            with self.consts:
-                packed_info(*args)
-            with self.consts.replaying():
-                self.graph.capture_begin()
-                try:
-                    self.out = packed_info(*args)
-                finally:
-                    self.graph.capture_end()
+            packed_info(*args)
+            self.graph.capture_begin()
+            try:
+                self.out = packed_info(*args)
+            finally:
+                self.graph.capture_end()
         stream.wait_stream(side)
 
     def run(self, res: ipm_lanes.SolveResult) -> np.ndarray:

@@ -463,21 +463,10 @@ def _compact_order(done):
 def solve_lanes_tiered(Z0, params: NLPParams, mcfg: ModelConfig,
                        scfg: SolverConfig, phase1_iters: int,
                        tail_lanes: int) -> SolveResult:
-    """Two-tier lane-major IPM: lanes still unconverged after phase1_iters
-    are compacted into a tail_lanes-wide sub-batch that resumes from its
-    exact mid-solve state; overflowed lanes are finished by the full-batch
-    safety-net phase, so results equal the single-phase solver's."""
-    st = _run_lanes(
-        _init_state(Z0, params, mcfg, scfg), params, mcfg, scfg, phase1_iters
-    )
-    with trace.span("solver.tail"):
-        idx = _compact_order(st[6])[:tail_lanes]
-        sub_st = tuple(_take_lanes(a, idx) for a in st)
-        sub_params = _map_params(lambda a: _take_lanes(a, idx), params)
-        sub_st = _run_lanes(sub_st, sub_params, mcfg, scfg, scfg.max_iters)
-        merged = tuple(_put_lanes(a, idx, b) for a, b in zip(st, sub_st))
-        merged = _run_lanes(merged, params, mcfg, scfg, scfg.max_iters)
-    return _state_to_result(merged, params, mcfg, scfg)
+    """Two-tier lane-major IPM: the one-level schedule of
+    solve_lanes_multitier (phase 1 capped at scfg.max_iters, as there)."""
+    return solve_lanes_multitier(Z0, params, mcfg, scfg,
+                                 ((phase1_iters, tail_lanes),))
 
 
 def solve_lanes_multitier(Z0, params: NLPParams, mcfg: ModelConfig,
@@ -487,18 +476,22 @@ def solve_lanes_multitier(Z0, params: NLPParams, mcfg: ModelConfig,
     schedule = ((iter_cap_0, tail_lanes_1), (iter_cap_1, tail_lanes_2), ...):
     the full batch runs to iter_cap_0, the unconverged minority is
     compacted into tail_lanes_1 lanes and run to iter_cap_1, and so on; the
-    last level runs to scfg.max_iters.  Lanes that overflow a level are
-    finished by the final full-batch safety-net phase (free when nothing
-    overflows: its loop condition is false on entry).
+    last level runs to scfg.max_iters.  Every cap is at most
+    scfg.max_iters.  Lanes that overflow a level are finished by the final
+    full-batch safety-net phase (free when nothing overflows: its loop
+    condition is false on entry), so results equal the single-phase
+    solver's.  The empty schedule is the single-phase solve itself (no
+    tail).
     """
-    assert len(schedule) > 0, "multitier schedule must be non-empty"
     schedule = tuple(
         (min(cap, scfg.max_iters), lanes) for cap, lanes in schedule
     )
     st = _run_lanes(
         _init_state(Z0, params, mcfg, scfg), params, mcfg, scfg,
-        schedule[0][0],
+        schedule[0][0] if schedule else scfg.max_iters,
     )
+    if not schedule:
+        return _state_to_result(st, params, mcfg, scfg)
 
     def level(st, params, i):
         idx = _compact_order(st[6])[:schedule[i][1]]
@@ -524,25 +517,24 @@ def _round_lanes(B: int, frac: float) -> int:
 
 def solve_batch_lanes_tiered(Z0, params: NLPParams, mcfg: ModelConfig,
                              scfg: SolverConfig) -> SolveResult:
-    """Batch-leading wrapper for the tiered solver.
+    """Batch-leading wrapper for the tiered solver: one call of
+    solve_lanes_multitier with the schedule the config gives.
 
     scfg.tiers, when non-empty, gives a multi-level ((iter_cap, frac), ...)
     schedule (frac = fraction of the FULL batch, rounded to 128 lanes);
-    otherwise scfg.tier_phase1 / scfg.tier_frac select the two-phase solver
-    (tier_phase1 <= 0 = single phase)."""
+    otherwise scfg.tier_phase1 / scfg.tier_frac give one level
+    (tier_phase1 <= 0: the empty schedule, a single phase)."""
     B = Z0.shape[0]
     with trace.span("solver"):
         if scfg.tiers:
             schedule = tuple(
                 (cap, _round_lanes(B, frac)) for cap, frac in scfg.tiers
             )
-            return solve_lanes_multitier(
-                Z0.movedim(0, -1).contiguous(), lanes_params(params), mcfg,
-                scfg, schedule,
-            )
-        if scfg.tier_phase1 <= 0:
-            return solve_batch_lanes(Z0, params, mcfg, scfg)
-        return solve_lanes_tiered(
+        elif scfg.tier_phase1 > 0:
+            schedule = ((scfg.tier_phase1, _round_lanes(B, scfg.tier_frac)),)
+        else:
+            schedule = ()
+        return solve_lanes_multitier(
             Z0.movedim(0, -1).contiguous(), lanes_params(params), mcfg, scfg,
-            scfg.tier_phase1, _round_lanes(B, scfg.tier_frac),
+            schedule,
         )

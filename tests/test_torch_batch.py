@@ -152,18 +152,38 @@ def test_sweep_stats_leaves_live_on_the_result_device(port64, device):
         assert leaf.shape == (), name
 
 
-def test_scenario_stream_equals_grid_solves(port64):
-    sets = [_seeds(), _seeds(8)]
-    res = tb.solve_scenario_stream(CFG, sets, bench.HALVES,
+def test_scenario_stream_equals_grid_solves(port64, monkeypatch):
+    """The stream solves each set once, in order, as solve_scenario_grid
+    with the caller's halves, x0, dtype and device, and returns the
+    results in order: the first set solved for real, the rest recorded."""
+    sets = [_seeds(), _seeds(8), _seeds(9)]
+    x0 = np.zeros(9)
+    x0[2] = 1.2
+    real, calls = tb.solve_scenario_grid, []
+
+    def recording(cfg, goals, forces, halves, x0=None, dtype=None, *,
+                  device):
+        calls.append((cfg, goals, forces, halves, x0, dtype, device))
+        if len(calls) == 1:
+            return real(cfg, goals, forces, halves, x0=x0, dtype=dtype,
+                        device=device)
+        return f"result {len(calls)}"
+
+    monkeypatch.setattr(tb, "solve_scenario_grid", recording)
+    res = tb.solve_scenario_stream(CFG, sets, bench.HALVES, x0=x0,
                                    dtype=torch.float64, device="cpu")
-    assert len(res) == 2
+    assert len(res) == 3 and res[1:] == ["result 2", "result 3"]
     assert torch.equal(res[0].Z, port64.Z)
-    one = tb.solve_scenario_grid(CFG, *sets[1], bench.HALVES,
-                                 dtype=torch.float64, device="cpu")
-    assert torch.equal(res[1].Z, one.Z)
-    assert torch.equal(res[1].exit_code, one.exit_code)
+    assert torch.equal(res[0].exit_code, port64.exit_code)
+    assert len(calls) == 3
+    for (cfg, g, f, halves, x, dtype, device), (g0, f0) in zip(calls, sets):
+        assert cfg is CFG and g is g0 and f is f0
+        assert halves is bench.HALVES and x is x0
+        assert dtype is torch.float64 and device == "cpu"
+    calls.clear()
     assert tb.solve_scenario_stream(CFG, [], bench.HALVES,
                                     device="cpu") == []
+    assert calls == []
 
 
 def test_solve_scenarios_tiers_match_single_phase():

@@ -3,17 +3,19 @@ against its eager route, bit for bit.
 
 On the CPU: the staged buffer's views equal unpack_params' tensors, the
 packed info struct of a staged solve equals the eager route's outputs,
-exit flag and info fields, the torch.tensor holder hands back the warm-up's
-tensors, and a CPU solve takes the eager route (no graph replay).  On a
-card (`cuda`): the graph route equals the eager route on the migration and
-hover problems, f32 and f64, both profiles and predictor-corrector, with
-one replay a solve, and A, B, A on one instance gives A's answers twice.
+exit flag and info fields, the info struct copies no constant from the
+host (a capture could not), and a CPU solve takes the eager route (no
+graph replay).  On a card (`cuda`): the graph route equals the eager route
+on the migration and hover problems, f32 and f64, both profiles and
+predictor-corrector, with one replay a solve, and A, B, A on one instance
+gives A's answers twice.
 JAX-free, so the card can run it."""
 import dataclasses
 
 import numpy as np
 import pytest
 import torch
+from torch.overrides import TorchFunctionMode
 
 from forces_resilient_planner_tpu_torch.config import DEFAULT_CONFIG as C
 from forces_resilient_planner_tpu_torch.solver import forces_api as fa
@@ -129,22 +131,38 @@ def test_cpu_solve_takes_the_eager_route(eager_answers):
     assert_same_answer(got, answers[("f32", "normal")])
 
 
-def test_held_constants_replay_the_warm_ups_tensors():
-    held = fa._HeldConstants()
-    with held:
-        a = torch.tensor([0.5, 0.25, 0.0], dtype=torch.float32)
-        b = torch.tensor([1.0], dtype=torch.float64)
-        c = torch.zeros(2)                 # other functions pass through
-    assert [id(t) for _, _, t in held.made] == [id(a), id(b)]
-    with held.replaying():
-        assert torch.tensor([0.5, 0.25, 0.0], dtype=torch.float32) is a
-        assert torch.tensor([1.0], dtype=torch.float64) is b
-        assert torch.zeros(2) is not c
-    with pytest.raises(RuntimeError, match="not as in the warm-up"):
-        with held.replaying():
-            torch.tensor([0.5, 0.25, 1.0], dtype=torch.float32)
-    with held:                              # outside replaying: new tensors
-        assert torch.tensor([1.0], dtype=torch.float64) is not b
+class _Recorder(TorchFunctionMode):
+    """Records every torch function called while active."""
+
+    def __init__(self):
+        super().__init__()
+        self.called = []
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        self.called.append(func)
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_packed_info_copies_no_host_constant(eager_answers, dtype):
+    """What the capture needs: the info struct makes no tensor from host
+    values (torch.tensor copies pageable host memory, which a CUDA graph
+    capture refuses), here on CPU tensors."""
+    params, _ = eager_answers
+    dt = DTYPES[dtype]
+    staged = fa._Staged(dt, torch.device("cpu"))
+    staged.load(fa._param_arrays(params, C, False))
+    Z = staged.Z0.clone()
+    lb, ub = nlp.variable_bounds(C.model, dt, device="cpu")
+    one = torch.ones(1, dtype=torch.int32)
+    rec = _Recorder()
+    with rec:
+        h = fa.packed_info(Z, one, one, torch.zeros(1, dtype=dt), staged.p,
+                           lb, ub, C.model, C.solver)
+    assert h.shape == (fa.X0_TOTAL + len(fa._PACKED),)
+    assert len(rec.called) > 50          # the mode saw the dynamics' ops
+    assert torch.tensor not in rec.called
+    assert torch.as_tensor not in rec.called
 
 
 # ---------------------------------------------------------------------------

@@ -150,6 +150,27 @@ def test_multitier_solver_bit_identical(problem, single_phase):
     _bit_identical(got, single_phase)
 
 
+def test_tier_phase1_past_max_iters_is_capped(problem):
+    """tier_phase1 beyond the solver's own cap stops phase 1 at max_iters,
+    as the single-phase solve does (the JAX two-tier route does not cap)."""
+    _, params, Z0 = problem
+    scfg = dataclasses.replace(C.solver, max_iters=4)
+    single = tl.solve_batch_lanes(Z0, params, C.model, scfg)
+    assert int(single.iters.max()) == 4
+    tiered = dataclasses.replace(scfg, tier_phase1=scfg.max_iters + 3,
+                                 tier_frac=1.0)
+    _bit_identical(
+        tl.solve_batch_lanes_tiered(Z0, params, C.model, tiered), single)
+
+
+def test_empty_schedule_is_the_single_phase_solve(problem):
+    _, params, Z0 = problem
+    scfg = dataclasses.replace(C.solver, max_iters=4)
+    Zl, pl = Z0.movedim(0, -1).contiguous(), tl.lanes_params(params)
+    _bit_identical(tl.solve_lanes_multitier(Zl, pl, C.model, scfg, ()),
+                   tl.solve_lanes(Zl, pl, C.model, scfg))
+
+
 def test_round_lanes_bench_tiers():
     assert [tl._round_lanes(4096, f) for f in (0.25, 0.0625)] == [1024, 256]
     assert tl._round_lanes(24, 0.25) == 24

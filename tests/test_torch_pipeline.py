@@ -159,10 +159,16 @@ def test_drifted_robots_match_jax():
 
 
 def test_nmpc_step_stream_steps_every_set():
-    a = tpb.pipeline_inputs_from_numpy(_batched_inputs(), dtype=torch.float64,
-                                       device="cpu")
-    sets = [a, dict(a, t_offset=a["t_offset"] + 0.05)]
-    outs = tpb.nmpc_step_stream(lambda d: tpb.nmpc_step_batched(**d, cfg=C),
-                                sets)
-    assert len(outs) == 2
-    assert not torch.equal(outs[0].ref.ref_pos, outs[1].ref.ref_pos)
+    """The stream steps each input set once, in order, and returns the
+    results in order."""
+    sets = [{"set": i} for i in range(3)]
+    seen = []
+
+    def step_fn(a):
+        seen.append(a)
+        return ("stepped", a["set"])
+
+    outs = tpb.nmpc_step_stream(step_fn, sets)
+    assert outs == [("stepped", 0), ("stepped", 1), ("stepped", 2)]
+    assert len(seen) == 3 and all(a is b for a, b in zip(seen, sets))
+    assert tpb.nmpc_step_stream(step_fn, []) == []
