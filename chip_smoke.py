@@ -12,9 +12,10 @@ CUDA kernel against its plain PyTorch version on the card:
   slice 2, the batched full NMPC step: engine/pipeline_batch.py::
   nmpc_step_batched at DEFAULT_CONFIG on 4096 robots (N = 20, K = 64 path
   samples, M = 256 obstacles, each robot its own cloud, force, time offset
-  and profile), with the tube kernel ops/csrc/tube_stage.cu (K2), the tube
-  chain ops/csrc/tube_chain.cu after it, the corridor kernel ops/csrc/
-  corridor.cu (K3) and K1;
+  and profile), with stage 1's references kernel ops/csrc/reference.cu,
+  the tube kernel ops/csrc/tube_stage.cu (K2), the tube chain ops/csrc/
+  tube_chain.cu after it, the corridor kernel ops/csrc/corridor.cu (K3)
+  and K1;
   slice 3, the Mehrotra predictor-corrector (SolverConfig.
   predictor_corrector=True) on the grid and the step, every iteration one
   Riccati factor K4a and two backsolves K4b of ops/csrc/lqr.cu, and the
@@ -61,8 +62,9 @@ printed):
      entry function, K1's lanes and shared memory per CTA, K2's stage lanes,
      threads and shared memory per CTA (a team of 9 threads per lane), the
      tube chain's robots, threads and shared memory per CTA at N = 20 (a
-     team of 9 threads per robot, fixed in its source) and K3's route,
-     lanes per stage,
+     team of 9 threads per robot, fixed in its source), the references'
+     robots per CTA (a thread per robot, fixed in its source) and K3's
+     route, lanes per stage,
      threads, shared memory per CTA and
      scratch at M = 256, 1024, 2048, 8192, 16,384 and 70,000 and at M = 2048
      with k = 64, K4a's, K4b's, K5a's and K5b's lanes, threads and shared
@@ -97,23 +99,28 @@ printed):
      NaN: E and Q2 NaN exactly where the plain chain has it, elsewhere f64
      |d| <= 1e-10 (1 + |ref|), f32 max |d| <= 1e-6; the share of entries
      bit-equal to the plain chain's printed
-  6. K3 vs its plain version: f64, A and b within 1e-9 on every row, on
+  6. stage 1's references kernel vs its plain version on the card, on the
+     main path's own inputs (B = 4096 and the first robot alone, f64 and
+     f32): ref_pos, ref_yaw and stage0_jump bit-equal, one launch a call;
+     K3 vs its plain version: f64, A and b within 1e-9 on every row, on
      generic random inputs at B = 256, M = 256 and at B = 64, M = 2048, and
      on the main path's own segments and clouds (B = 4096, M = 256); f32
      at the main path's inputs, the share of (robot, stage) whose rows
      match within 1e-4 (printed, not barred: argmin ties flip planes at f32)
   7. slice 2 main path at f32, on the easy workload and on one where every
-     4th robot has drifted from its plan: K2, the tube chain and K3
-     launched once each, K1 once per host-loop step; every output finite
-     on the accepted robots; the f64 certificate on the CPU (no obstacle
-     inside any tightened polytope, accepted trajectories within 1e-4 of
+     4th robot has drifted from its plan: the references, K2, the tube
+     chain and K3 launched once each, K1 once per host-loop step; every
+     output finite on the accepted robots; the f64 certificate on the CPU
+     (no obstacle inside any tightened polytope, accepted trajectories within 1e-4 of
      their corridors, the card's NLP of robots 0-63 re-solved by the plain solver at f64 within
      1e-3 in u); the step through the plain versions on the card, its
      exit-code agreement printed and its solved fraction within 0.005
   8. slice 2 times: K2, the tube chain and K3 ms per call against their
      plain versions, each beside its bound and the share of it (K3's
      bound from the work this run's data needs: ops/corridor_kernel.py::
-     decompose_stages_work);
+     decompose_stages_work); the references' ms per call on the card alone
+     (utils/measure.py::device_ms) at B = 4096 and B = 1, and with the
+     host's launch cost, against the plain version's, beside its bound;
      K3 at M = CorridorConfig.max_obstacles (2048), its geometry there;
      nmpc_step_batched ms per call and steps/s over 5 pre-staged fresh
      input sets of each workload; engine/pipeline.py::nmpc_step at B = 1,
@@ -154,13 +161,14 @@ printed):
      f64 on the card and, for lanes 0-31, on the CPU, with identical
      status, n_edges, edge_inputs and iterations; then B = 128 for 8 s:
      collided 0, every lane exactly one outcome, reached >= 0.95, states
-     and controls finite on the lanes not frozen, K2, the tube chain and K3
-     launched once a tick and K1 once a host-loop step; the K1, K2, chain
-     and K3 calls of ticks
+     and controls finite on the lanes not frozen, the references, K2, the
+     tube chain and K3 launched once a tick and K1 once a host-loop step;
+     the references, K1, K2, chain and K3 calls of ticks
      20 (a replan) and 25, their arguments recorded during the run (B = 128,
      the 2048-point cloud, shrink_iters 8, max_obs_planes 12), each held
      against its plain version at f64 on the same values with the bars of
-     phases 2, 5 and 6 (K1: identical it/done, 1e-9 (1 + |ref|); K2 and
+     phases 2, 5 and 6 (the references: bit-equal, also at the run's f32;
+     K1: identical it/done, 1e-9 (1 + |ref|); K2 and
      the chain: 1e-10 (1 + |ref|), the chain's NaN alike; K3: 1e-9 on every
      row); printed: the outcomes, the
      tick exit-code fractions, the searches, wall seconds and the realtime
@@ -171,9 +179,9 @@ printed):
      hover-to-goal (4 s), wind-step (5 s) and fence (7 s, obstacle scene)
      scenarios with that file's bars (final position within 0.4 m / 0.5 m,
      failures <= solves // 4; fence: final x > 2.8 and inside the gap band
-     while at the fence line), K2, the tube chain and K3 once a solve, K1
-     once a host-loop step; in the fence scene the K1, K2, chain and K3
-     calls of every 4th solve
+     while at the fence line), the references, K2, the tube chain and K3
+     once a solve, K1 once a host-loop step; in the fence scene the
+     references, K1, K2, chain and K3 calls of every 4th solve
      (B = 1, M = 2048) held against their plain versions at f64 with phase
      12's bars, at least one of them with a non-empty cloud; then at
      DEFAULT_CONFIG (its 400 x 400 x 60 map) 3 s hover to goal: the MPC
@@ -206,8 +214,8 @@ printed):
      K1 once per host-loop step); printed: solves/s and steady state,
      mean / p99 / max iterations, exit-code fractions. (d) entry()'s step
      on the card: finite, its exit code equal to the same call on the CPU,
-     K2, the tube chain and K3 launched once and K1 once per host-loop
-     step; then
+     the references, K2, the tube chain and K3 launched once and K1 once
+     per host-loop step; then
      dryrun_multichip(1) (one spawned NCCL rank) passing its shape check
   15. slice 6 at DEFAULT_CONFIG: (a) the stress batch, B = 512 (seed 123,
      the bench tiers), at f64 and f32 through K1: K1 once per host-loop
@@ -228,7 +236,8 @@ printed):
      its K1 launches equal to this process's; its wall against phase 1's
      build seconds. (d) the examples at their defaults (config 1 also with
      --oracle, config 6 at FLEET_EXAMPLE_ARGS): each returns and prints its
-     line; K1 once per host-loop step, the tube chain as often as K2;
+     line; K1 once per host-loop step, the references and the tube chain
+     as often as K2;
      config 1 exit 1 (oracle |du| <= 1e-3), config 2 exit 1 with K2 = K3 =
      1, config 3 K2 = K3 = solves, config 4 solved >= 0.999, config 6 no
      collision, K2 = K3 = ticks
@@ -243,8 +252,8 @@ printed):
      (examples/config3_obstacle_scene.py: the fence, its wind, 7 s) with
      the planner at f64 and max_cloud = 8192: final position within 0.5 m
      of the goal, no trace point in an occupied voxel, K3 once a solve by
-     the gathered route, K2 and the tube chain once a solve, K1 once a
-     host-loop step; its MPC tick p50 / p99
+     the gathered route, the references, K2 and the tube chain once a
+     solve, K1 once a host-loop step; its MPC tick p50 / p99
   17. the headline bench: python3 -m forces_resilient_planner_tpu_torch.
      bench in a child process, which must exit 0 within BENCH_TIMEOUT
      seconds; its [bench] lines printed; its last stdout line one JSON
@@ -260,8 +269,11 @@ move (inputs read once, outputs written once) over the H100's 3.35 TB/s
 and its operations over 67 TFLOP/s (f32, no tensor cores), computed from
 this run's inputs (K2: the doublings its lanes take; K3: the sets of the
 rounds that run on its data; the tube chain: Qd, Q1 and Mp's rows 0-2
-read, E and Q2 written); library_ms is null for all eight kernels (no
-single PyTorch call computes any of them).  K3 has two entries, one per route:
+read, E and Q2 written; the references: ops/reference_kernel.py::
+reference_bytes and reference_operations); library_ms is null for all
+nine kernels (no single PyTorch call computes any of them).  The
+references' ms is on the card alone (utils/measure.py::device_ms), at
+B = 4096, and ms_b1 at B = 1.  K3 has two entries, one per route:
 "corridor" (the shared route, phases 6-8) and "corridor_gathered" (phase
 16: launches on the f64 planner's run, the rest at B = 64, M = 16,384,
 f32).  max_abs_err is, for every kernel, the
@@ -269,7 +281,7 @@ f32 kernel against its plain version on the main path's inputs at the
 main path's shape (K1: the grid's initial IPM state; K2: the step's stage
 lanes; the tube chain: K2's outputs there; K3: the step's segments and
 clouds; K4: the predictor-corrector grid's initial calls; K5: the random
-blocks of phase 9).
+blocks of phase 9; the references: 0, bit-equal by phase 6's bar).
 
 K1's, K2's and K3's entries also carry launches_phase15, their launches
 on phase 15's paths.
@@ -322,6 +334,7 @@ from forces_resilient_planner_tpu_torch.ops import (
     corridor_kernel,
     ipm_kernel,
     lqr_kernel,
+    reference_kernel,
     tube_kernel,
 )
 from forces_resilient_planner_tpu_torch.oracle import cpu_oracle
@@ -348,6 +361,7 @@ from forces_resilient_planner_tpu_torch.utils.measure import (
     bound,
     card_line,
     cuda_ms,
+    device_ms,
     k1_flops,
     riccati_factor_flops,
     riccati_solve_flops,
@@ -578,6 +592,8 @@ def plain_routes():
              lqr_kernel.lqr_factor_fused_reference),
             (lqr_kernel, "lqr_backsolve_fused_lanes",
              lqr_kernel.lqr_backsolve_fused_reference),
+            (reference_kernel, "sample_references_lanes",
+             reference.sample_references_plain),
         ):
             stack.enter_context(mock.patch.object(module, name, plain))
         yield
@@ -666,6 +682,44 @@ def chain_bound(Qd, Mp, Q1):
     return bound(nbytes, tube_kernel.tube_chain_operations(B, N))
 
 
+def references_check(inputs, label):
+    """Stage 1's references kernel against its plain version on the card,
+    on the step's own inputs (mpc_output's row-1 views, as nmpc_step_batched
+    passes them), for all robots and for the first alone: ref_pos, ref_yaw
+    and stage0_jump bit-equal, one launch a call.  Returns a report."""
+    cfg = DEFAULT_CONFIG
+    N, dt, msg = cfg.model.N, cfg.model.dt, []
+    for Bw in (inputs["kino_path"].shape[0], 1):
+        prev = inputs["mpc_output"][:Bw]
+        args = (inputs["kino_path"][:Bw], inputs["kino_size"][:Bw],
+                inputs["t_offset"][:Bw], prev[:, 1, 16], prev[:, 1, 8:11])
+        before = reference_kernel.LAUNCHES
+        got = reference.sample_references(*args, N, dt)
+        launched = reference_kernel.LAUNCHES - before
+        want = reference.sample_references_plain(*args, N, dt)
+        torch.cuda.synchronize()
+        if launched != 1:
+            fail(f"the references {label} B={Bw}: {launched} launches, want 1")
+        for name, g, w in zip(reference.ReferenceResult._fields, got, want):
+            if not (g.dtype == w.dtype and g.shape == w.shape
+                    and torch.equal(g, w)):
+                d = (g.double() - w.double()).abs().max().item()
+                fail(f"the references {label} B={Bw}: {name} not bit-equal "
+                     f"to the plain version (max |d| {d:.3e})")
+        msg.append(f"B={Bw} bit-equal")
+    return ", ".join(msg)
+
+
+def reference_bound(kino_path, N):
+    """utils/measure.py::bound of the references kernel on kino_path
+    (B, K, 3): reference_kernel.reference_bytes over
+    reference_kernel.reference_operations."""
+    B, K = kino_path.shape[0], kino_path.shape[1]
+    return bound(reference_kernel.reference_bytes(
+        B, K, N, kino_path.element_size()),
+        reference_kernel.reference_operations(B, N))
+
+
 def random_segments(B, N, M, seed):
     """Generic random stage segments and clouds (the inputs of
     tools/kernel_parity_debug.py:86-93)."""
@@ -718,6 +772,7 @@ def reset_counts():
     """Every kernel's launch count and the host-loop step count to 0."""
     torch.cuda.synchronize()
     tube_kernel.LAUNCHES = tube_kernel.CHAIN_LAUNCHES = ipm_kernel.LAUNCHES = 0
+    reference_kernel.LAUNCHES = 0
     for name in corridor_kernel.LAUNCHES:
         corridor_kernel.LAUNCHES[name] = 0
     for name in lqr_kernel.LAUNCHES:
@@ -726,13 +781,13 @@ def reset_counts():
 
 
 def launch_counts():
-    """(K1, K2, K3, K4a, K4b, the tube chain) launches (K3: both
-    routes)."""
+    """(K1, K2, K3, K4a, K4b, the tube chain, the references) launches
+    (K3: both routes)."""
     return (ipm_kernel.LAUNCHES, tube_kernel.LAUNCHES,
             sum(corridor_kernel.LAUNCHES.values()),
             lqr_kernel.LAUNCHES["lqr_factor_fused"],
             lqr_kernel.LAUNCHES["lqr_backsolve_fused"],
-            tube_kernel.CHAIN_LAUNCHES)
+            tube_kernel.CHAIN_LAUNCHES, reference_kernel.LAUNCHES)
 
 
 def solver_launches_ok(counts, steps, scfg) -> bool:
@@ -828,14 +883,15 @@ def check_step(inputs, dev, label, cfg=DEFAULT_CONFIG, phase=7,
     res = step(inputs, cfg)
     torch.cuda.synchronize()
     counts = launch_counts()
-    l1, l2, l3, l4a, l4b, lc = counts
+    l1, l2, l3, l4a, l4b, lc, lr = counts
     steps = ipm_lanes.STEPS
     if "jax" in sys.modules:
         fail("jax was imported")
-    if not (l2 == lc == l3 == 1 and solver_launches_ok(counts, steps,
-                                                       cfg.solver)):
-        fail(f"launches: K2 {l2}, the chain {lc}, K3 {l3} (want 1 each), "
-             f"K1 {l1}, K4a {l4a}, K4b {l4b} vs host-loop steps {steps}")
+    if not (lr == l2 == lc == l3 == 1 and solver_launches_ok(counts, steps,
+                                                             cfg.solver)):
+        fail(f"launches: the references {lr}, K2 {l2}, the chain {lc}, K3 "
+             f"{l3} (want 1 each), K1 {l1}, K4a {l4a}, K4b {l4b} vs "
+             f"host-loop steps {steps}")
     ec = res.exit_code.cpu()
     acc = ec == 1
     solved = acc.double().mean().item()
@@ -852,8 +908,9 @@ def check_step(inputs, dev, label, cfg=DEFAULT_CONFIG, phase=7,
     solved64 = int(acc[:64].sum())
     codes = {int(c): int((ec == c).sum()) for c in ec.unique()}
     say(f"phase {phase} main path nmpc_step_batched B={B} f32{label}: solved "
-        f"{solved:.6f}, exit codes {codes}, launches K2 {l2} chain {lc} K3 "
-        f"{l3} K1 {l1} K4a {l4a} K4b {l4b}, host-loop steps {steps}, mean iters "
+        f"{solved:.6f}, exit codes {codes}, launches references {lr} K2 {l2} "
+        f"chain {lc} K3 {l3} K1 {l1} K4a {l4a} K4b {l4b}, host-loop steps "
+        f"{steps}, mean iters "
         f"{res.iters.double().mean().item():.3f}; f64 audit: max "
         f"obstacle penetration {pen} m ({n_pen} stages), max accepted "
         f"corridor violation {viol:.3e}, re-solve of robots 0-63 max |du| "
@@ -917,8 +974,8 @@ def one_robot_latency(cfg, label, M, dev, card, calls=30, phase=8):
 
 
 def run_slice2(dev, card):
-    """Phases 5-8; returns the {"kernels"} entries of K2, the tube chain
-    and K3."""
+    """Phases 5-8; returns the {"kernels"} entries of K2, the tube chain,
+    K3 and the references."""
     cfg = DEFAULT_CONFIG
     N, B = cfg.model.N, STEP_B
     f32 = torch.float32
@@ -975,7 +1032,11 @@ def run_slice2(dev, card):
         f"stage 8 Qd NaN: {msg}, NaN where the plain chain has it")
     del Qd, Mp, Q1, Qd_nan
 
-    # ---- phase 6: K3 vs plain ---------------------------------------------
+    # ---- phase 6: the references and K3 vs plain ----------------------------
+    for a, label in ((in64, "float64"), (inputs, "float32")):
+        say(f"phase 6 the references vs plain {label} N={N}, the main path's "
+            f"inputs: {references_check(a, label)} (bar bit-equal, one "
+            "launch a call)")
     for Bc, M in ((256, 256), (64, 2048)):
         p1, p2, obs, mask = random_segments(Bc, N, M, 31)
         args = [torch.as_tensor(a, dtype=torch.float64, device=dev)
@@ -993,7 +1054,7 @@ def run_slice2(dev, card):
     del in64
 
     # ---- phase 7: the slice-2 main path -----------------------------------
-    _, l2, l3, _, _, lc = check_step(inputs, dev, "")
+    _, l2, l3, _, _, lc, lr = check_step(inputs, dev, "")
     check_step(step_inputs(2, B, f32, dev, drift=True), dev,
                ", every 4th robot drifted")
 
@@ -1018,6 +1079,18 @@ def run_slice2(dev, card):
                                              lyapunov.taylor_n_terms(f32))
     b2 = bound(tensor_bytes(x, u, tube_kernel.tube_stage_reference(*targs)),
                ops2)
+    refs, msr, msr_host = {}, {}, {}
+    for Bw in (B, 1):
+        prev = inputs["mpc_output"][:Bw]
+        refs[Bw] = (inputs["kino_path"][:Bw], inputs["kino_size"][:Bw],
+                    inputs["t_offset"][:Bw], prev[:, 1, 16], prev[:, 1, 8:11],
+                    N, cfg.model.dt)
+        msr[Bw] = device_ms(lambda: reference.sample_references(*refs[Bw]),
+                            20)
+        msr_host[Bw] = cuda_ms(
+            lambda: reference.sample_references(*refs[Bw]), 20)
+    msrp = cuda_ms(lambda: reference.sample_references_plain(*refs[B]), 3)
+    br = reference_bound(refs[B][0], N)
     ops3, work3 = corridor_flops(args3, cfg.corridor)
     b3 = bound(tensor_bytes(args3, corridor_kernel.decompose_stages_reference(
         *cargs)), ops3)
@@ -1029,7 +1102,12 @@ def run_slice2(dev, card):
         "bound; "
         f"K3 {ms3:.3f} ms vs plain {ms3p:.3f} ms at B={B} N={N} M={STEP_M}, "
         f"bound {b3[0]:.4f} ms by {b3[1]} ({1e-9 * ops3:.4f} GFLOP of work "
-        f"{work3}), {100 * b3[0] / ms3:.2f}% of the bound")
+        f"{work3}), {100 * b3[0] / ms3:.2f}% of the bound; the references "
+        f"on the card alone {msr[B]:.4f} ms at B={B}, {msr[1]:.4f} ms at "
+        f"B=1 (with the host's launch cost {msr_host[B]:.4f} / "
+        f"{msr_host[1]:.4f} ms) vs plain {msrp:.3f} ms at B={B} N={N}, "
+        f"bound {br[0]:.5f} ms by {br[1]}, {100 * br[0] / msr[B]:.2f}% of "
+        "the bound")
     # K3 at the configuration's own obstacle buffer (CorridorConfig.
     # max_obstacles), where its groups widen
     Mx = cfg.corridor.max_obstacles
@@ -1065,6 +1143,13 @@ def run_slice2(dev, card):
          "replaces": "forces_resilient_planner_tpu/ops/corridor_pallas.py:98",
          "launches": l3, "max_abs_err": err3, "ms": ms3, "plain_ms": ms3p,
          "bound_ms": b3[0], "bound_by": b3[1], "library_ms": None},
+        {"name": "references", "route": "cuda",
+         "source": CSRC + "reference.cu",
+         "replaces": "forces_resilient_planner_tpu/engine/reference.py:24-75 "
+                     "(jnp, fused by XLA)",
+         "launches": lr, "max_abs_err": 0.0, "ms": msr[B], "ms_b1": msr[1],
+         "plain_ms": msrp, "bound_ms": br[0], "bound_by": br[1],
+         "library_ms": None},
     ]
 
 
@@ -1525,18 +1610,20 @@ def run_slice3(dev, card, mono_grid):
 
 @contextlib.contextmanager
 def capture_solves(solves):
-    """Records, cloned, the arguments of the K1, K2, tube chain and K3
-    wrappers in the NMPC solves numbered `solves` (0-based, one K2, one
-    chain and one K3 call each, then that solve's K1 calls).  The wrappers
-    run and count their launches as before.  Yields {solve: {"K1": [args,
-    ...], "K2": args, "chain": args, "K3": args}}."""
-    got, seen = {}, {"K2": 0, "chain": 0, "K3": 0}
+    """Records, cloned, the arguments of the references, K1, K2, tube chain
+    and K3 wrappers in the NMPC solves numbered `solves` (0-based, one
+    references, one K2, one chain and one K3 call each, then that solve's
+    K1 calls).  The wrappers run and count their launches as before.
+    Yields {solve: {"K1": [args, ...], "refs": args, "K2": args, "chain":
+    args, "K3": args}}."""
+    got, seen = {}, {"refs": 0, "K2": 0, "chain": 0, "K3": 0}
 
     def recorded(name, real):
         def wrapper(*args):
             if name == "K1":
                 s = seen["K3"] - 1
-                if seen["K2"] == seen["chain"] == seen["K3"] and s in got:
+                if (seen["refs"] == seen["K2"] == seen["chain"] == seen["K3"]
+                        and s in got):
                     got[s]["K1"].append(map_tensors(torch.clone, args))
             else:
                 s = seen[name]
@@ -1549,6 +1636,7 @@ def capture_solves(solves):
 
     with contextlib.ExitStack() as stack:
         for name, module, attr in (
+                ("refs", reference_kernel, "sample_references_lanes"),
                 ("K1", ipm_kernel, "ipm_iteration_fused"),
                 ("K2", tube_kernel, "tube_stage_lanes"),
                 ("chain", tube_kernel, "tube_chain_lanes"),
@@ -1584,16 +1672,26 @@ def k1_f64(args):
 
 
 def hold_solves(captured, phase, label):
-    """Each captured solve's K2, tube chain, K3 and K1 calls held against
-    their plain versions at f64 on the same values (cast from the run's
-    f32), with the bars of phases 2, 5 and 6; any miss fails the phase.
-    Returns each solve's largest cloud (masked points of a lane)."""
-    if not captured or any({"K1", "K2", "chain", "K3"} - set(c) or not c["K1"]
-                           for c in captured.values()):
-        fail(f"{label}: a captured solve lacks a K1, K2, chain or K3 call")
+    """Each captured solve's references call held bit for bit against the
+    plain version, at the run's dtype and cast to f64, and its K2, tube
+    chain, K3 and K1 calls against their plain versions at f64 on the same
+    values (cast from the run's f32), with the bars of phases 2, 5 and 6;
+    any miss fails the phase.  Returns each solve's largest cloud (masked
+    points of a lane)."""
+    if not captured or any({"refs", "K1", "K2", "chain", "K3"} - set(c)
+                           or not c["K1"] for c in captured.values()):
+        fail(f"{label}: a captured solve lacks a references, K1, K2, chain "
+             "or K3 call")
     k1_rel, k1_calls, k2_rel, dA, db = 0.0, 0, 0.0, 0.0, 0.0
     chain_rel = 0.0
     for c in captured.values():
+        for args in (c["refs"], as_f64(c["refs"])):
+            got = reference_kernel.sample_references_lanes(*args)
+            want = reference.sample_references_plain(*args)
+            torch.cuda.synchronize()
+            if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                fail(f"the references {label} at {args[0].dtype}: not "
+                     "bit-equal to the plain version")
         x, u, mcfg, tcfg, K = as_f64(c["K2"])
         ref = tube_kernel.tube_stage_reference(x, u, mcfg, tcfg, K)
         got = tube_kernel.tube_stage_lanes(x, u, mcfg, tcfg, K)
@@ -1615,7 +1713,8 @@ def hold_solves(captured, phase, label):
             k1_calls += 1
     clouds = [int(c["K3"][3].sum(dim=-1).max()) for c in captured.values()]
     p1, obs, ccfg = c["K3"][0], c["K3"][2], c["K3"][4]
-    say(f"phase {phase} {label}: K1, K2, the chain and K3 vs plain at f64 on "
+    say(f"phase {phase} {label}: the references bit-equal to plain at the "
+        f"run's dtype and f64; K1, K2, the chain and K3 vs plain at f64 on "
         f"the inputs "
         f"of {len(captured)} solves (B={p1.shape[0]} N={p1.shape[1]} "
         f"M={obs.shape[1]}, up to {max(clouds)} cloud points a lane, "
@@ -1717,7 +1816,7 @@ def check_fleet(dev, card):
         res = fly_fleet(setup, dur, trace)
     torch.cuda.synchronize()
     counts = launch_counts()
-    l1, l2, l3, l4a, l4b, lc = counts
+    l1, l2, l3, l4a, l4b, lc, lr = counts
     steps = ipm_lanes.STEPS
     if "jax" in sys.modules:
         fail("jax was imported")
@@ -1732,12 +1831,13 @@ def check_fleet(dev, card):
         f"goal {to_goal:.3f} s, wall "
         f"{res.wall_s:.2f} s "
         f"(per-tick trace on), realtime factor {B * dur / res.wall_s:.1f}; "
-        f"launches K2 {l2} chain {lc} K3 {l3} K1 {l1} K4a {l4a} K4b {l4b}, "
-        f"host-loop steps {steps}")
-    if not (l2 == lc == l3 == ticks and solver_launches_ok(counts, steps,
-                                                           cfg.solver)):
-        fail(f"fleet launches: K2 {l2}, the chain {lc}, K3 {l3} (want {ticks} "
-             f"each), K1 {l1} vs host-loop steps {steps}, K4a {l4a}, K4b {l4b}")
+        f"launches references {lr} K2 {l2} chain {lc} K3 {l3} K1 {l1} K4a "
+        f"{l4a} K4b {l4b}, host-loop steps {steps}")
+    if not (lr == l2 == lc == l3 == ticks
+            and solver_launches_ok(counts, steps, cfg.solver)):
+        fail(f"fleet launches: the references {lr}, K2 {l2}, the chain {lc}, "
+             f"K3 {l3} (want {ticks} each), K1 {l1} vs host-loop steps "
+             f"{steps}, K4a {l4a}, K4b {l4b}")
     if res.collided_frac != 0.0:
         fail(f"fleet collided {res.collided_frac}")
     if sum(res.outcome_counts.values()) != B:
@@ -1801,7 +1901,7 @@ def check_robot(dev, card):
         p, trace = fly_robot(cfg, goal, dur, dev, sched)
         wall = time.perf_counter() - t0
         torch.cuda.synchronize()
-        l1, l2, l3, l4a, l4b, lc = launch_counts()
+        l1, l2, l3, l4a, l4b, lc, lr = launch_counts()
         d = p.diag
         miss = float(np.linalg.norm(trace["pos"][-1]
                                     - np.array([goal[0], goal[1], 1.2])))
@@ -1810,8 +1910,8 @@ def check_robot(dev, card):
             f"{miss:.3f} m (bar {tol}), solves {d.solves}, failures "
             f"{d.solve_failures}, replans {d.replans}, transitions "
             f"{len(d.fsm_transitions)}; solve p50 {solve['p50_ms']:.2f} ms, "
-            f"p99 {solve['p99_ms']:.2f}; launches K2 {l2} chain {lc} K3 {l3} "
-            f"K1 {l1}, "
+            f"p99 {solve['p99_ms']:.2f}; launches references {lr} K2 {l2} "
+            f"chain {lc} K3 {l3} K1 {l1}, "
             f"host-loop steps {ipm_lanes.STEPS}; wall {wall:.2f} s")
         if miss >= tol:
             fail(f"robot {label}: final distance {miss:.3f} m >= {tol}")
@@ -1819,10 +1919,11 @@ def check_robot(dev, card):
                 d.solves > 10 and d.solve_failures <= d.solves // 4):
             fail(f"robot {label}: {d.solve_failures} failures of "
                  f"{d.solves} solves")
-        if not (l2 == lc == l3 == d.solves and l1 == ipm_lanes.STEPS > 0
-                and l4a == l4b == 0):
-            fail(f"robot launches: K2 {l2}, the chain {lc}, K3 {l3} vs "
-                 f"{d.solves} solves, K1 {l1} vs {ipm_lanes.STEPS} steps")
+        if not (lr == l2 == lc == l3 == d.solves
+                and l1 == ipm_lanes.STEPS > 0 and l4a == l4b == 0):
+            fail(f"robot launches: the references {lr}, K2 {l2}, the chain "
+                 f"{lc}, K3 {l3} vs {d.solves} solves, K1 {l1} vs "
+                 f"{ipm_lanes.STEPS} steps")
 
     # the obstacle scene, its own bars; every 4th solve's kernel inputs held
     reset_counts()
@@ -1832,7 +1933,7 @@ def check_robot(dev, card):
                              occupied=workloads.fence_points())
     wall = time.perf_counter() - t0
     torch.cuda.synchronize()
-    l1, l2, l3, l4a, l4b, lc = launch_counts()
+    l1, l2, l3, l4a, l4b, lc, lr = launch_counts()
     steps, d, final = ipm_lanes.STEPS, p.diag, trace["pos"][-1]
     ys = [q[1] for q in trace["pos"] if 1.35 < q[0] < 1.65]
     say(f"phase 13 robot fence 7.0 s f32 [{card}]: final position "
@@ -1840,16 +1941,16 @@ def check_robot(dev, card):
         f"at the fence line with y in [{min(ys, default=np.nan):.3f}, "
         f"{max(ys, default=np.nan):.3f}] (bar (-0.2, 1.7)), solves "
         f"{d.solves}, failures {d.solve_failures}, replans {d.replans}; "
-        f"launches K2 {l2} chain {lc} K3 {l3} K1 {l1}, host-loop steps "
-        f"{steps}; wall {wall:.2f} s")
+        f"launches references {lr} K2 {l2} chain {lc} K3 {l3} K1 {l1}, "
+        f"host-loop steps {steps}; wall {wall:.2f} s")
     if not final[0] > 2.8:
         fail(f"robot fence: final x {final[0]:.3f} <= 2.8")
     if not (ys and all(-0.2 < y < 1.7 for y in ys)):
         fail("robot fence: not inside the gap band at the fence line")
-    if not (l2 == lc == l3 == d.solves and l1 == steps > 0
+    if not (lr == l2 == lc == l3 == d.solves and l1 == steps > 0
             and l4a == l4b == 0):
-        fail(f"robot fence launches: K2 {l2}, the chain {lc}, K3 {l3} vs "
-             f"{d.solves} solves, K1 {l1} vs {steps} steps")
+        fail(f"robot fence launches: the references {lr}, K2 {l2}, the chain "
+             f"{lc}, K3 {l3} vs {d.solves} solves, K1 {l1} vs {steps} steps")
     clouds = hold_solves(captured, 13, "the robot's fence solves")
     if max(clouds) == 0:
         fail("robot fence: every solve's corridor cloud was empty")
@@ -1969,7 +2070,7 @@ def check_forces_api(dev, card):
                 fail(f"FORCES API {name} {profile}: f32 exitflag {f32}, "
                      f"|du| {du32:.2e}")
             for c, n in ((cnt, steps), (cnt32, steps32)):
-                if not (c[0] == n > 1 and c[1:] == (0, 0, 0, 0, 0)):
+                if not (c[0] == n > 1 and c[1:] == (0,) * 6):
                     fail(f"FORCES API {name} {profile}: launches {c} vs "
                          f"{n} host-loop steps")
         say(f"phase 14 FORCES API {name}: terminal speed final "
@@ -2141,18 +2242,19 @@ def check_entry(dev):
     reset_counts()
     out, ec, kkt = fn(*args)
     torch.cuda.synchronize()
-    (l1, l2, l3, l4a, l4b, lc), steps = launch_counts(), ipm_lanes.STEPS
+    (l1, l2, l3, l4a, l4b, lc, lr), steps = launch_counts(), ipm_lanes.STEPS
     fn_c, args_c = entry.entry(device="cpu")
     ec_c = int(fn_c(*args_c)[1])
     say(f"phase 14 entry(): mpc_output {tuple(out.shape)} finite "
         f"{bool(out.isfinite().all())}, exit code {int(ec)} (CPU {ec_c}), "
-        f"kkt {float(kkt):.2e}; K2 {l2} chain {lc} K3 {l3} K1 {l1}, host-loop "
-        f"steps {steps}")
+        f"kkt {float(kkt):.2e}; references {lr} K2 {l2} chain {lc} K3 {l3} K1 "
+        f"{l1}, host-loop steps {steps}")
     if not (bool(out.isfinite().all()) and int(ec) == ec_c):
         fail(f"entry(): exit code {int(ec)} vs CPU {ec_c} or not finite")
-    if not (l2 == lc == l3 == 1 and l1 == steps > 0 and l4a == l4b == 0):
-        fail(f"entry() launches: K1 {l1} vs {steps}, K2 {l2}, the chain "
-             f"{lc}, K3 {l3}")
+    if not (lr == l2 == lc == l3 == 1 and l1 == steps > 0
+            and l4a == l4b == 0):
+        fail(f"entry() launches: K1 {l1} vs {steps}, the references {lr}, "
+             f"K2 {l2}, the chain {lc}, K3 {l3}")
     t0 = time.perf_counter()
     rep = entry.dryrun_multichip(1, timeout=300)
     say(f"phase 14 dryrun_multichip(1): {rep} in "
@@ -2389,12 +2491,12 @@ def check_examples(dev, card):
             total += (l1, l2, l3)
             lines = [ln for ln in text.splitlines() if ln.strip()]
             say(f"phase 15 example {label} [{card}]: {sec:.1f} s, K1 {l1} = "
-                f"host-loop steps {steps}, K2 {l2}, chain {counts[5]}, K3 "
-                f"{l3}; "
+                f"host-loop steps {steps}, references {counts[6]}, K2 {l2}, "
+                f"chain {counts[5]}, K3 {l3}; "
                 + " | ".join(lines[-3:] if label.startswith("config1")
                              else lines[-2:]))
             ok = (l1 == steps > 0 and counts[3] == counts[4] == 0
-                  and counts[5] == l2)
+                  and counts[5] == counts[6] == l2)
             if label.startswith("config1"):
                 ok &= out["exit"] == 1 and out.get("oracle_err", 0) <= 1e-3
                 ok &= l2 == l3 == 0
@@ -2571,7 +2673,7 @@ def check_planner_f64(dev, card):
                                       force_schedule=workloads.wind)
     wall = time.perf_counter() - t0
     torch.cuda.synchronize()
-    l1, l2, _, l4a, l4b, lc = launch_counts()
+    l1, l2, _, l4a, l4b, lc, lr = launch_counts()
     routes = dict(corridor_kernel.LAUNCHES)
     steps, d = ipm_lanes.STEPS, p.diag
     pos = np.asarray(trace["pos"])
@@ -2587,17 +2689,18 @@ def check_planner_f64(dev, card):
         f"(bar 0), solves {d.solves}, failures {d.solve_failures}, replans "
         f"{d.replans}; MPC tick (solve) p50 {np.percentile(solve, 50):.2f} "
         f"ms, p99 {np.percentile(solve, 99):.2f} ms over {len(solve)} ticks "
-        f"after 3; launches K3 {routes}, K2 {l2}, chain {lc}, K1 {l1}, "
-        f"host-loop steps {steps}; wall {wall:.2f} s")
+        f"after 3; launches K3 {routes}, references {lr}, K2 {l2}, chain "
+        f"{lc}, K1 {l1}, host-loop steps {steps}; wall {wall:.2f} s")
     if not miss < 0.5:
         fail(f"planner f64: final distance {miss:.3f} m to the goal >= 0.5")
     if hits:
         fail(f"planner f64: {hits} trace points in occupied voxels")
-    if not (routes["corridor_gathered"] == l2 == lc == d.solves > 0
+    if not (routes["corridor_gathered"] == lr == l2 == lc == d.solves > 0
             and routes["corridor"] == 0 and l1 == steps > 0
             and l4a == l4b == 0):
-        fail(f"planner f64 launches: K3 {routes}, K2 {l2}, the chain {lc} "
-             f"vs {d.solves} solves, K1 {l1} vs {steps} steps")
+        fail(f"planner f64 launches: K3 {routes}, the references {lr}, K2 "
+             f"{l2}, the chain {lc} vs {d.solves} solves, K1 {l1} vs {steps} "
+             "steps")
     return routes["corridor_gathered"]
 
 
@@ -2799,6 +2902,11 @@ def build_phase():
         f"threads (32 threads) per CTA, {3 * (18 * N + 144) * 4} / "
         f"{3 * (18 * N + 144) * 8} B of shared memory at f32 / f64 "
         "(registers and spills: the tube_chain.cu line above)")
+    # reference.cu's compile-time geometry: REF_THREADS = 32 robots, one
+    # thread each, per CTA, no shared memory
+    say(f"phase 1 the references (reference.cu): 32 robots, one thread "
+        f"each, per CTA, {STEP_B // 32} CTAs at B={STEP_B}, no shared memory "
+        "(registers and spills: the reference.cu line above)")
     lib3 = _build.load(corridor_kernel.SOURCE, corridor_kernel._bind)
     geo = []
     for dtype in (torch.float32, torch.float64):

@@ -3,7 +3,10 @@
 Port of forces_resilient_planner_tpu/engine/reference.py (NMPCSolver::
 getCurTraj / calculate_yaw, nmpc_solver.cpp:109-142, 834-862), batched over
 a leading robot axis B.  The yaw low-pass filter is sequential by
-construction: a loop over the N stages on (B,) tensors.
+construction: in the plain version a loop over the N stages on (B,)
+tensors.  On a CUDA tensor `sample_references` is one launch of the kernel
+ops/csrc/reference.cu (ops/reference_kernel.py), which computes the plain
+version's numbers bit for bit, one thread a robot.
 
 The sample index follows the JAX function as its callers run it, under
 jit on XLA:CPU: floor(fma(i, Ts, t_offset) * (1 / Ts)), one rounding of
@@ -18,6 +21,7 @@ from typing import NamedTuple
 
 import torch
 
+from forces_resilient_planner_tpu_torch.ops import reference_kernel
 from forces_resilient_planner_tpu_torch.utils.lanes import norm3
 
 _PI = 3.1415926  # the reference's PI constant, exactly (nmpc_solver.cpp:3)
@@ -59,6 +63,30 @@ def sample_references(
     Ts: float,
     lookahead: int = 5,
 ) -> ReferenceResult:
+    """The references of B robots: on a CPU tensor the plain version, on
+    any other one launch of the kernel (the views of mpc_output made
+    contiguous first)."""
+    if kino_path.device.type == "cpu":
+        return sample_references_plain(kino_path, kino_size, t_offset,
+                                       last_yaw, pred_pos1, N, Ts, lookahead)
+    return ReferenceResult(*reference_kernel.sample_references_lanes(
+        kino_path.contiguous(), kino_size.to(torch.int64),
+        t_offset.contiguous(), last_yaw.contiguous(), pred_pos1.contiguous(),
+        N, Ts, lookahead))
+
+
+def sample_references_plain(
+    kino_path: torch.Tensor,   # (B, K, 3) padded
+    kino_size: torch.Tensor,   # (B,) int, actual sample count
+    t_offset: torch.Tensor,    # (B,) seconds since kino path start
+    last_yaw: torch.Tensor,    # (B,) mpc_output[:, 1, 16] (nmpc_solver.cpp:486)
+    pred_pos1: torch.Tensor,   # (B, 3) mpc_output[:, 1] position
+    N: int,
+    Ts: float,
+    lookahead: int = 5,
+) -> ReferenceResult:
+    """Plain PyTorch version, on any device: the kernel's reference (its
+    order of operations is the kernel's)."""
     dtype, device = kino_path.dtype, kino_path.device
     B, K = kino_path.shape[0], kino_path.shape[1]
     size = kino_size.to(torch.int64)[:, None]                    # (B, 1)

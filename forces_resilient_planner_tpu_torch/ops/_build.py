@@ -1,7 +1,7 @@
 """Build and load the hand-written CUDA kernels of ops/csrc/.
 
 nvcc compiles each source of ops/csrc/ (ipm_iteration.cu, tube_stage.cu,
-tube_chain.cu, corridor.cu, lqr.cu; all include common.cuh, and
+tube_chain.cu, corridor.cu, lqr.cu, reference.cu; all include common.cuh, and
 ipm_iteration.cu and lqr.cu riccati.cuh) for sm_90a into its own shared
 library with a plain C interface, loaded with ctypes.  A library is built
 at first use into ops/csrc/build/ (git-ignored) and rebuilt whenever its
@@ -35,7 +35,7 @@ from forces_resilient_planner_tpu_torch.utils import trace
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("ipm_iteration.cu", "tube_stage.cu", "tube_chain.cu",
-           "corridor.cu", "lqr.cu")
+           "corridor.cu", "lqr.cu", "reference.cu")
 BUILD_DIR = CSRC / "build"
 NVCC_FALLBACK = "/usr/local/cuda/bin/nvcc"
 # no --use_fast_math: the NaN guards need IEEE division and isfinite;
@@ -52,9 +52,11 @@ NVCC_FLAGS = (
 # neither, and writes the plain version's emulated FMAs as __fma_rn, so that
 # it decides the ties of a voxel cloud as the plain version does; nor
 # tube_chain.cu, which rounds the tube recursion and roots op for op as
-# their plain versions do
+# their plain versions do; nor reference.cu, which rounds the reference
+# sampling and the yaw filter op for op as engine/reference.py does
 SOURCE_FLAGS = {"lqr.cu": ("-fmad=false",), "corridor.cu": ("-fmad=false",),
-                "tube_chain.cu": ("-fmad=false",)}
+                "tube_chain.cu": ("-fmad=false",),
+                "reference.cu": ("-fmad=false",)}
 
 
 class Built(NamedTuple):

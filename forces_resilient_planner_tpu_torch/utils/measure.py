@@ -48,6 +48,23 @@ def cuda_ms(fn, reps):
     return t0.elapsed_time(t1) / reps
 
 
+def device_ms(fn, reps: int) -> float:
+    """ms per call of fn on the card alone: CUDA events over `reps` calls
+    queued behind a ~10 ms wait on the card, so the card runs them back to
+    back and the host's launch cost between them does not count."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)
+    t0.record()
+    for _ in range(reps):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
 def tensor_bytes(*objs) -> int:
     """Bytes of every tensor in objs (tuples and named tuples walked)."""
     total = 0

@@ -1,7 +1,7 @@
-"""Time the tube kernel (K2), the tube chain and the corridor kernel (K3) on
-the card through their public wrappers, optionally the Riccati kernels K4a
-and K4b of the predictor-corrector and K5a and K5b of the batched LQR, and
-optionally the end-to-end paths around them.
+"""Time the tube kernel (K2), the tube chain, stage 1's references and the
+corridor kernel (K3) on the card through their public wrappers, optionally
+the Riccati kernels K4a and K4b of the predictor-corrector and K5a and K5b
+of the batched LQR, and optionally the end-to-end paths around them.
 
     python3 k23_probe.py [--reps R] [--m M [M ...]] [--k3-split] [--k4] [--k5]
                          [--e2e]
@@ -12,7 +12,12 @@ JSON line: the card, K2 ms per call at L = 4096 x 20 stage lanes (the full
 step's f32 inputs, chip_smoke.step_inputs), the tube chain ms per call on
 K2's outputs there at B = 4096 and B = 1 (N = 20) beside its bound
 (utils/measure.py::bound of the bytes it must move and
-tube_kernel.tube_chain_operations) and, for each M of --m (default
+tube_kernel.tube_chain_operations), engine/reference.py::
+sample_references ms per call on the same step's inputs at B = 4096 and
+B = 1 (in a checkout with the references kernel: its time on the card
+alone, `device_ms` (utils/measure.py::device_ms), beside its bound,
+chip_smoke.reference_bound, and the plain version's ms and
+max |kernel - plain|) and, for each M of --m (default
 256), K3 ms per call on the full step's segments with M obstacles per robot
 (B = 4096, N = 20) and on chip_smoke.random_segments at B = 64 (phase 6's
 generic case); each time is CUDA events over R calls after a warm-up,
@@ -110,6 +115,22 @@ def probe(args) -> None:
                          lambda: tube_kernel.tube_chain_reference(*a), 3))
             out[f"chain B={Bw} N={N}"] = t
         del Qd, Mp, Q1
+    from forces_resilient_planner_tpu_torch.engine import reference
+    plain = getattr(reference, "sample_references_plain", None)
+    for Bw in (B, 1):
+        prev = inputs["mpc_output"][:Bw]
+        a = (inputs["kino_path"][:Bw], inputs["kino_size"][:Bw],
+             inputs["t_offset"][:Bw], prev[:, 1, 16], prev[:, 1, 8:11], N,
+             cfg.model.dt)
+        t = timed(reference.sample_references, plain, a)
+        if plain is not None:                  # the kernel's checkout
+            ms, by = chip_smoke.reference_bound(a[0], N)
+            dev_ms = chip_smoke.device_ms(
+                lambda: reference.sample_references(*a), 20)
+            t.update(device_ms=dev_ms, bound_ms=ms, bound_by=by,
+                     bound_share_pct=100 * ms / dev_ms,
+                     plain_ms=chip_smoke.cuda_ms(lambda: plain(*a), 3))
+        out[f"references B={Bw} N={N}"] = t
     del inputs, Z
 
     def cut(a, Bw):

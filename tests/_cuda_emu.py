@@ -1,9 +1,8 @@
 """Build a kernel source of ops/csrc/ for the CPU: g++ against the host
 stand-in of the CUDA runtime in tests/cuda_emu/, its launches rewritten to
-emu::launch and its one dynamic shared memory declaration to a per-block
-buffer.  The
-library has the same C entry points as the nvcc build and takes CPU
-pointers."""
+emu::launch and its dynamic shared memory declaration, where it has one,
+to a per-block buffer.  The library has the same C entry points as the
+nvcc build and takes CPU pointers."""
 import ctypes
 import re
 import shutil
@@ -31,7 +30,7 @@ def build(source: str, out: Path, bind) -> ctypes.CDLL:
     src, n_launch = re.subn(
         r"([\w:]+(?:<[^<>()]*>)?)<<<([^,]+),([^,]+),([^,]+),([^>]+)>>>\(",
         r"emu::launch(\1, \2,\3,\4, ", src)
-    assert n_smem == 1 and n_launch >= 1
+    assert n_smem <= 1 and n_launch >= 1
     cpp = out / (Path(source).stem + ".cpp")
     cpp.write_text(src)
     so = out / f"lib{Path(source).stem}_emu.so"

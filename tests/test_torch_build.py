@@ -31,6 +31,7 @@ PORT_MODULES = [
     "forces_resilient_planner_tpu_torch.ops.corridor_kernel",
     "forces_resilient_planner_tpu_torch.ops.ipm_kernel",
     "forces_resilient_planner_tpu_torch.ops.lqr_kernel",
+    "forces_resilient_planner_tpu_torch.ops.reference_kernel",
     "forces_resilient_planner_tpu_torch.solver.ipm_lanes",
     "forces_resilient_planner_tpu_torch.solver.riccati",
     "forces_resilient_planner_tpu_torch.solver.problems",

@@ -15,6 +15,7 @@ from forces_resilient_planner_tpu_torch.ops import (
     corridor_kernel,
     ipm_kernel,
     lqr_kernel,
+    reference_kernel,
     tube_kernel,
 )
 from forces_resilient_planner_tpu_torch.solver import nlp
@@ -92,13 +93,20 @@ ENTRIES = {
          "dynamics[1]": (N - 1, 13, 4, B), "c": (N - 1, 13, B),
          "qx": (N, 13, B), "qu": (N, 4, B), "dx0": (9, B)},
         "c"),
+    "sample_references_lanes": (
+        lambda t: reference_kernel.sample_references_lanes(
+            t["kino_path"], t["kino_size"], t["t_offset"], t["last_yaw"],
+            t["pred_pos1"], N, C.model.dt),
+        {"kino_path": (B, M, 3), "kino_size": ((B,), torch.int64),
+         "t_offset": (B,), "last_yaw": (B,), "pred_pos1": (B, 3)},
+        "pred_pos1"),
 }
 
 
 def _launches():
     return (ipm_kernel.LAUNCHES, tube_kernel.LAUNCHES,
             tube_kernel.CHAIN_LAUNCHES, dict(corridor_kernel.LAUNCHES),
-            dict(lqr_kernel.LAUNCHES))
+            dict(lqr_kernel.LAUNCHES), reference_kernel.LAUNCHES)
 
 
 def _tensors(entry, dtype=torch.float32, **spoil):
@@ -169,6 +177,7 @@ def test_the_corridor_mask_is_bool_at_either_float_dtype(dtype):
                           "Q1": (0, N, 3, 3)}, "B >= 1 robots"),
     ("decompose_stages_lanes", {"obs": (B, 0, 3)}, "B, N, M >= 1"),
     ("ipm_iteration_fused", {"Z": (1, 17, B)}, "N >= 2"),
+    ("sample_references_lanes", {"kino_path": (B, 0, 3)}, "B, K, N >= 1"),
 ])
 def test_each_wrappers_own_size_rules(entry, spoil, match):
     t = _tensors(entry, **{k: torch.empty(s, device="meta")
